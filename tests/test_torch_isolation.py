@@ -1,0 +1,149 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the reference
+package, and it never falls back to the CPU on its own — an entry point
+asked (or left) to compute on CUDA raises where there is none, and a CUDA
+kernel launches or raises."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.fused_sgd import ops  # noqa: E402
+from repro_torch.runtime import live, stage_executor, transport  # noqa: E402
+from repro_torch.runtime import workload as wl  # noqa: E402
+from repro_torch.runtime.devices import resolve_device  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro", "ftpipehd")
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+        .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+
+
+def test_no_forbidden_import_in_the_source():
+    bad = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                    for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_every_module_loads_no_jax_nor_reference():
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r} + ['chip_smoke']:\n"
+            "    importlib.import_module(m)\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "print(len(sys.modules), bad)\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-fallback rule is "
+                    "checked where there is none")
+
+
+def test_entry_points_raise_without_cuda_unless_told_cpu():
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        wl.WorkloadSpec().build()
+    chain, batches = wl.WorkloadSpec().build(device="cpu")
+    sl = chain.flat_layout().slice(0, 1)
+    with pytest.raises(RuntimeError):
+        stage_executor.StageExecutor(chain, sl, last=False, lr=0.1)
+    with pytest.raises(RuntimeError):
+        live.run_live_training(chain, batches, live.LiveConfig())
+    with pytest.raises(RuntimeError):
+        live.run_live_training(chain, batches, live.LiveConfig(device="cuda"))
+
+
+def test_fused_sgd_raises_instead_of_falling_back():
+    n0 = ops.fused_sgd.launches
+    p, g, m = (torch.zeros(8, device="meta") for _ in range(3))
+    with pytest.raises(ValueError):
+        ops.fused_sgd(p, g, m, lr=0.1)
+    with pytest.raises(ValueError):           # mixed devices
+        ops.fused_sgd(torch.zeros(8), g, m, lr=0.1)
+    assert ops.fused_sgd.launches == n0
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc()
+
+
+def test_library_key_follows_the_source():
+    path = build.library_path("fused_sgd")
+    assert path.parent == ROOT / "build" / "repro_torch"
+    assert path.name.startswith("fused_sgd-") and path.suffix == ".so"
+    assert build.library_path("fused_sgd") == path     # deterministic
+
+
+def test_unported_options_raise_not_implemented():
+    chain, batches = wl.WorkloadSpec().build(device="cpu")
+    with pytest.raises(NotImplementedError, match="K2/K3"):
+        live.Coordinator(chain, lambda b: batches[b % len(batches)],
+                         live.LiveConfig(device="cpu",
+                                         wire_compress="int8-fused"))
+    with pytest.raises(NotImplementedError, match="net.py"):
+        transport.Transport.create("tcp", addr_of={}, local=(0, 0))
+    sl = chain.flat_layout().slice(0, 1)
+    ex = stage_executor.StageExecutor(chain, sl, last=False, lr=0.1,
+                                      device="cpu")
+    with pytest.raises(NotImplementedError, match="K2/K3"):
+        ex.forward_q(sl.pack(chain.flat_params(0, 1)), batches[0]["x"], None)
+
+
+def test_chip_smoke_fails_without_cuda():
+    _no_cuda()
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    assert "cuda.is_available() is false" in proc.stderr
+
+
+def test_chip_smoke_fails_without_the_port_beside_it(tmp_path):
+    """Alone in a directory, even with a (pretended) GPU, the script
+    exits non-zero and prints no result line."""
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    code = ("import runpy, torch\n"
+            "torch.cuda.is_available = lambda: True\n"
+            "runpy.run_path('chip_smoke.py', run_name='__main__')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    assert "not beside this script" in proc.stderr
