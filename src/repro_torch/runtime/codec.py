@@ -43,9 +43,9 @@ coordinator in the ``install``/``admit`` handshake (``docs/protocol.md``).
 
 Codec v3 adds the DEVICE-QUANTIZED ndarray tag (13): the payload is a
 ``runtime/qtensor.DeviceQuantized`` — u8 codes + per-channel affine
-params produced INSIDE the compiled ``StageExecutor`` step by the fused
-``kernels/quant`` Pallas kernels (with error-feedback residuals carried
-on-device). Unlike tags 11/12, the codec performs NO quantization math in
+params produced on the device at the ``StageExecutor`` boundary by the
+fused ``kernels/quant`` CUDA kernels (with error-feedback residuals
+carried on-device). Unlike tags 11/12, the codec performs NO quantization math in
 either direction: ``encode`` frames the already-quantized bytes with pure
 struct-packing (zero numpy passes — enforced by
 ``tools/check_codec_hotpath.py``), and ``decode`` returns the
@@ -191,7 +191,7 @@ def _enc_array(x: Any, out: list, tier: str, used: list) -> None:
 
 def _enc_qd(x: DeviceQuantized, out: list, used: list) -> None:
     """Zero-copy passthrough of a device-quantized tensor (tag 13). The
-    payload was quantized INSIDE the compiled step; this function is pure
+    payload was quantized on the device already; this function is pure
     struct-packing + byte concatenation by design — no numpy calls on
     the data-plane hot path (tools/check_codec_hotpath.py enforces it).
 

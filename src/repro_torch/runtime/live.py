@@ -188,8 +188,8 @@ class LiveConfig:
     #                              "off" | "fp16" | "int8" (per-tensor
     #                              affine, codec-side numpy) |
     #                              "int8-fused" (per-channel affine
-    #                              quantized INSIDE the compiled step by
-    #                              the kernels/quant Pallas kernels, with
+    #                              quantized on the device by the
+    #                              kernels/quant CUDA kernels, with
     #                              error-feedback residuals; the codec
     #                              ships the payload zero-copy). Any tier
     #                              != "off" implies the wire codec. Decode
@@ -201,8 +201,6 @@ class LiveConfig:
     #                              wire_compress ("int8-fused" downgrades
     #                              to tag-12 int8 there: replica payloads
     #                              are plain snapshots, not stage outputs)
-    #                              The port does not run "int8-fused" yet:
-    #                              it needs the quant kernels K2/K3
     device: Optional[str] = None   # torch device of the data plane: None
     #                                = "cuda" (raises without a GPU); pass
     #                                "cpu" to run on the CPU
@@ -1123,10 +1121,6 @@ class Coordinator:
         if chain.device != self.device:
             raise ValueError(f"the chain lives on {chain.device} but "
                              f"LiveConfig.device is {self.device}")
-        if "int8-fused" in (cfg.wire_compress, cfg.wire_compress_replica):
-            raise NotImplementedError(
-                "wire_compress='int8-fused' needs the quant kernels K2/K3, "
-                "not yet ported (ROADMAP.md, Queue 1 item 5)")
         # LiveConfig.overlap_replication mirrors into the shared protocol
         # decision layer, so the simulator run with the same
         # ProtocolConfig predicts exactly the control points live executes

@@ -1,8 +1,8 @@
 """Device-quantized tensor container for the zero-copy wire path.
 
 A ``DeviceQuantized`` is what ``StageExecutor.forward_q``/``step_q``
-emit: u8 codes plus per-channel affine params, produced INSIDE the
-compiled step by ``kernels/quant``. The fields are raw ``bytes`` so the
+emit: u8 codes plus per-channel affine params, produced on the device
+by ``kernels/quant``. The fields are raw ``bytes`` so the
 codec can frame them with pure struct-packing — no numpy pass on the
 transport hot path (``tools/check_codec_hotpath.py`` enforces that).
 The numpy conversions live HERE, at construction (one memcpy off the

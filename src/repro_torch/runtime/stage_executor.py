@@ -30,8 +30,14 @@ gives each slice ONE packed representation and ONE step:
     ``compiled=False`` keeps the per-layer autograd + ``optim/sgd`` path
     (same packed interface) as a reference.
 
-The int8-fused wire tier (``forward_q`` / ``step_q``) needs the quant
-kernels K2/K3, which are not ported yet (ROADMAP.md, Queue 1 item 5).
+``forward_q`` / ``step_q`` are the int8-fused wire tier's variants: the
+outgoing boundary tensor (activation, or the cotangent ``dx``) leaves
+the stage as per-channel u8 codes through the ``kernels/quant`` CUDA
+kernel K2, with an error-feedback residual threaded like momentum, and
+ships as a ``DeviceQuantized`` (codec tag 13). Every entry point accepts
+an inbound ``DeviceQuantized``: it is copied to the device once and
+dequantized there by K3 before autograd, so ``dx`` is taken with respect
+to the f32 activation the upstream stage's residual accounted for.
 """
 from __future__ import annotations
 
@@ -45,13 +51,11 @@ from repro_torch import tree
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_sgd.ops import (fused_sgd, pack_leaves,
                                                unpack_leaves)
+from repro_torch.kernels.quant.ops import dequantize, quantize_ef
 from repro_torch.optim.sgd import sgd_update
 from repro_torch.runtime.devices import resolve_device
-from repro_torch.runtime.qtensor import DeviceQuantized
+from repro_torch.runtime.qtensor import DeviceQuantized, host_array
 from repro_torch.runtime.workload import as_f32, synchronize
-
-_QUANT_TODO = ("the int8-fused wire tier needs the quant kernels K2/K3, "
-               "not yet ported (ROADMAP.md, Queue 1 item 5)")
 
 
 def aggregate_packed(bufs) -> torch.Tensor:
@@ -172,6 +176,11 @@ class StageExecutor:
         cotangent ``ct`` (1.0 at the last stage), fused SGD update applied
         to ``new_buf`` (the newest version) — the exact update order of the
         uncompiled path. All three results are new tensors.
+    ``forward_q(buf, x, res)`` / ``step_q(..., res=None)``
+        the int8-fused variants: the outgoing tensor is quantized on the
+        device (K2) with the carried residual ``res``; they return a
+        ``DeviceQuantized`` and the new residual — or, where the tensor
+        is not finite, the exact f32 values and a zero residual.
     """
 
     def __init__(self, chain, slice_layout: SliceLayout, *, last: bool,
@@ -199,10 +208,35 @@ class StageExecutor:
 
     def _coerce(self, x):
         """Wire value -> f32 tensor on this executor's device. Decoded
-        wire arrays (numpy) move to the device here."""
+        wire arrays (numpy) move to the device here. A ``DeviceQuantized``
+        (tag 13) is the dequantization boundary of the fused tier: its
+        codes and params reach the device in one copy and K3 dequantizes
+        them there."""
         if isinstance(x, DeviceQuantized):
-            raise NotImplementedError(_QUANT_TODO)
+            return dequantize(*self._device_triple(x))
         return as_f32(x, self.device)
+
+    def _device_triple(self, x: DeviceQuantized):
+        """(q u8 [..., C], lo f32 [C], scale f32 [C]) on the device, as
+        views of ONE host->device copy of ``lo | scale | codes`` (the f32
+        params first, so their views are 4-byte aligned)."""
+        C = x.num_channels
+        host = torch.frombuffer(bytearray(x.lo + x.scale + x.data),
+                                dtype=torch.uint8)
+        buf = host.to(self.device)
+        params = buf[:8 * C].view(torch.float32)
+        return buf[8 * C:].view(x.shape), params[:C], params[C:]
+
+    def _quantize(self, t, res):
+        """K2 on an outgoing boundary tensor -> ``(payload, res')``: a
+        ``DeviceQuantized`` and the new residual on the device, or — where
+        ``t + res`` is not finite — the exact f32 values on the host and a
+        zero residual (``bool(ok)`` is the one sync)."""
+        t = t.detach().contiguous()
+        q, lo, scale, res2, ok, z = quantize_ef(t, res)
+        if bool(ok):
+            return DeviceQuantized.from_arrays(q, lo, scale), res2
+        return host_array(z), torch.zeros_like(res2)
 
     def forward(self, buf, x, batch=None):
         """Run the slice forward under packed weights ``buf``: activation
@@ -214,7 +248,16 @@ class StageExecutor:
                 self._coerce(x), batch)
 
     def forward_q(self, buf, x, res, batch=None):
-        raise NotImplementedError(_QUANT_TODO)
+        """Mid-stage forward that emits a quantized boundary tensor: the
+        forward, then K2 with error feedback on its output. ``res`` is the
+        carried residual (None on the first send after an install).
+        Returns ``(payload, res')``, ``payload`` a ``DeviceQuantized`` —
+        or exact f32 values when the activation went non-finite (the
+        residual then resets to zero)."""
+        if self.last:
+            raise ValueError("forward_q is for mid stages; the last stage "
+                             "emits a loss, not an activation")
+        return self._quantize(self.forward(buf, x, batch), res)
 
     def step(self, fwd_buf, new_buf, mom_buf, x, ct=None, batch=None):
         """One fused backward+update: recompute the forward under
@@ -233,7 +276,13 @@ class StageExecutor:
 
     def step_q(self, fwd_buf, new_buf, mom_buf, x, ct=None, batch=None,
                res=None):
-        raise NotImplementedError(_QUANT_TODO)
+        """``step`` that also quantizes the outgoing cotangent ``dx`` with
+        error feedback (stages > 0 on the fused tier). Returns
+        ``(payload, new_buf', mom_buf', res')`` with the same exact
+        fallback as ``forward_q``."""
+        dx, p_new, m_new = self.step(fwd_buf, new_buf, mom_buf, x, ct, batch)
+        payload, res2 = self._quantize(dx, res)
+        return payload, p_new, m_new, res2
 
     def _step_fused(self, fwd_buf, new_buf, mom_buf, x, ct, batch):
         # the VJP is taken on detached aliases: the stashed buffer itself
@@ -294,6 +343,7 @@ def warm_up(chain, batch: dict) -> None:
         return
     with _warm_lock:
         build.load("fused_sgd")
+        build.load("quant")
         with torch.enable_grad():
             plist = [tree.map(lambda t: t.detach().requires_grad_(True), p)
                      for p in chain.params]

@@ -15,9 +15,11 @@ torch.set_num_threads(2)
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.fused_sgd import ops  # noqa: E402
+from repro_torch.kernels.quant import ops as qops  # noqa: E402
 from repro_torch.runtime import live, stage_executor, transport  # noqa: E402
 from repro_torch.runtime import workload as wl  # noqa: E402
 from repro_torch.runtime.devices import resolve_device  # noqa: E402
+from repro_torch.runtime.qtensor import DeviceQuantized  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -110,19 +112,42 @@ def test_library_key_follows_the_source():
     assert build.library_path("fused_sgd") == path     # deterministic
 
 
-def test_unported_options_raise_not_implemented():
-    chain, batches = wl.WorkloadSpec().build(device="cpu")
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        live.Coordinator(chain, lambda b: batches[b % len(batches)],
-                         live.LiveConfig(device="cpu",
-                                         wire_compress="int8-fused"))
+def test_quant_raises_instead_of_falling_back():
+    n0 = (qops.quantize_ef.launches, qops.dequantize.launches)
+    x = torch.zeros(4, 8, device="meta")
+    with pytest.raises(ValueError):
+        qops.quantize_ef(x)
+    with pytest.raises(ValueError):           # mixed devices
+        qops.quantize_ef(torch.zeros(4, 8), x)
+    with pytest.raises(ValueError):           # wrong dtype
+        qops.quantize_ef(torch.zeros(4, 8, dtype=torch.float64))
+    q = torch.zeros(4, 8, dtype=torch.uint8)
+    lo = torch.zeros(8)
+    with pytest.raises(ValueError):
+        qops.dequantize(q.to("meta"), lo.to("meta"), lo.to("meta"))
+    with pytest.raises(ValueError):           # mixed devices
+        qops.dequantize(q, lo.to("meta"), lo)
+    with pytest.raises(ValueError):           # wrong dtype
+        qops.dequantize(q.to(torch.int8), lo, lo)
+    assert (qops.quantize_ef.launches, qops.dequantize.launches) == n0
+
+
+def test_tcp_transport_raises_not_implemented():
     with pytest.raises(NotImplementedError, match="net.py"):
         transport.Transport.create("tcp", addr_of={}, local=(0, 0))
+
+
+def test_int8_fused_tier_is_accepted():
+    chain, batches = wl.WorkloadSpec().build(device="cpu")
+    live.Coordinator(chain, lambda b: batches[b % len(batches)],
+                     live.LiveConfig(device="cpu", wire_compress="int8-fused"))
     sl = chain.flat_layout().slice(0, 1)
     ex = stage_executor.StageExecutor(chain, sl, last=False, lr=0.1,
                                       device="cpu")
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        ex.forward_q(sl.pack(chain.flat_params(0, 1)), batches[0]["x"], None)
+    payload, res = ex.forward_q(sl.pack(chain.flat_params(0, 1)),
+                                batches[0]["x"], None)
+    assert isinstance(payload, DeviceQuantized)
+    assert payload.shape == tuple(res.shape)
 
 
 def test_chip_smoke_fails_without_cuda():

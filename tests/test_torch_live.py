@@ -93,3 +93,53 @@ def test_losses_match_reference(runs):
     for res in (ref, port):
         assert np.isfinite(res.losses).all()
         assert res.losses[-5:].mean() < res.losses[:5].mean()
+
+
+# ---------------------- int8-fused wire tier (K2/K3) ----------------------
+
+FUSED_PROTO = dict(chain_every=4, global_every=8, repartition_first_at=10_000,
+                   repartition_every=10_000, detect_timeout=2.0)
+
+
+@pytest.fixture(scope="module")
+def fused_runs():
+    """The mlp chain (6 layers, 2 workers, 10 batches) on the wire codec:
+    the JAX package on the int8-fused tier, and the port on the int8-fused
+    and off tiers, all three on the JAX package's weights."""
+    ref_chain = ref_wl.mlp_chain(jax.random.PRNGKey(0), num_layers=6)
+    ref_data = ref_wl.classification_batches("mlp", 6, batch=16, seed=0)
+    ref = ref_live.run_live_training(ref_chain, ref_data, ref_live.LiveConfig(
+        num_workers=2, num_batches=10, protocol=RefProtocol(**FUSED_PROTO),
+        lr=0.1, wire_codec=True, wire_compress="int8-fused",
+        wire_compress_replica="off"))
+    flats = {j: np.asarray(f) for j, f in ref_chain.flat_params().items()}
+
+    def port(tier):
+        chain = wl.mlp_chain(torch.Generator().manual_seed(0), num_layers=6)
+        chain.load_flat_params(flats)
+        data = wl.classification_batches("mlp", 6, batch=16, seed=0)
+        return live.run_live_training(chain, data, live.LiveConfig(
+            num_workers=2, num_batches=10,
+            protocol=ProtocolConfig(**FUSED_PROTO), lr=0.1, wire_codec=True,
+            wire_compress=tier, wire_compress_replica="off", device="cpu"))
+
+    return ref, port("int8-fused"), port("off")
+
+
+@pytest.mark.live
+def test_fused_tier_losses_track_reference_and_exact_wire(fused_runs):
+    ref, fused, off = fused_runs
+    for res in fused_runs:
+        assert len(res.losses) == 10 and np.isfinite(res.losses).all()
+    assert float(np.max(np.abs(fused.losses - ref.losses))) <= 0.05
+    assert float(np.max(np.abs(fused.losses - off.losses))) <= 0.05
+
+
+@pytest.mark.live
+def test_fused_tier_ships_fewer_act_and_grad_bytes(fused_runs):
+    _, fused, off = fused_runs
+    kb1, kb0 = fused.transport_stats["kind_bytes"], \
+        off.transport_stats["kind_bytes"]
+    assert kb1["act"] + kb1["grad"] < 0.6 * (kb0["act"] + kb0["grad"])
+    assert kb1["act"] < kb0["act"] and kb1["grad"] < kb0["grad"]
+    assert kb0["control"] > 0 and kb1["control"] > 0
