@@ -20,13 +20,19 @@ Phases, each fatal on failure (exit code 1, no result line):
   3. the main path: ``run_live_training`` trains the full-width
      MobileNetV2-CIFAR chain (32x32, batch 64, 19 layers) with 3 workers,
      a worker killed at batch 12, §III-D re-partition and §III-F
-     recovery, every payload through the wire codec (exact f32 tier);
-  F. the same run on the int8-fused wire tier: every act and grad leaves
-     its stage through K2 and is dequantized by K3 on the receiving side;
-     its per-batch losses stay within 0.05 of phase 3's up to the kill,
-     its last-5 mean loss within 0.05, its act+grad bytes under 0.6x.
-     Before each run the kernels' launch counts are reset, and they are
-     read just after;
+     recovery, on the default data plane (device tensors handed between
+     the workers) and the run's own measured profile;
+  F. the same run twice more on one shared measured profile with
+     deterministic cuDNN, every payload through the wire codec: on the
+     exact tier (``off``), then on the int8-fused tier, where every act
+     and grad leaves its stage through K2 and is dequantized by K3 on the
+     receiving side. The two take the same partitions and resume at the
+     same batch; the fused run's per-batch losses stay within 0.05 of the
+     exact run's up to the kill, its last-5 mean loss within 0.05, its
+     act+grad bytes under 0.6x. A third, exact run on cuDNN's default
+     algorithms prints how far rounding alone moves the losses. Before
+     each run the kernels' launch counts are reset, and they are read
+     just after;
   4. K1 again at every stage-slice size the run used, then each kernel's
      time beside its bound, its plain version's and, for K1, one library
      call's (``torch.optim.SGD(fused=True)``, a yardstick the port never
@@ -168,16 +174,20 @@ def quant_inputs(rows, C, seed, with_res, torch):
 
 
 def quant_vs_plain(x, res, levels, what, torch, qops, qref):
-    """K2 and K3 against their plain versions on the same inputs; checks
-    the EF invariant on the card. Returns (max |kernel - plain|, ok)."""
+    """K2 (with z written, and without, as the live runtime calls it) and
+    K3 against their plain versions on the same inputs; checks the EF
+    invariant on the card. Returns (max |kernel - plain|, ok)."""
     got = qops.quantize_ef(x, res, levels=levels)
+    lean = qops.quantize_ef(x, res, levels=levels, with_z=False)
     want = qref.quantize_ef_reference(x, res, levels=levels)
     torch.cuda.synchronize()
     names = ("q", "lo", "scale", "res'", "ok", "z")
     ok = bool(want[4])
-    check(bool(got[4]) == ok, f"quantize_ef ok differs at {what}")
+    check(bool(got[4]) == ok and bool(lean[4]) == ok and lean[5] is None,
+          f"quantize_ef ok differs at {what}")
     # codes of a non-finite tensor are never shipped: compare ok and z
-    pairs = list(zip(names, got, want)) if ok else [("z", got[5], want[5])]
+    pairs = (list(zip(names, got, want)) + list(zip(names[:4], lean, want))
+             if ok else [("z", got[5], want[5])])
     err = 0.0
     for name, a, b in pairs:
         check(same(a, b, torch), f"quantize_ef {name} differs from its "
@@ -248,8 +258,9 @@ def quant_phase(shapes, torch, qops, qref):
 
 
 def quant_timings(rows, C, torch, qops, qref):
-    """K2 (with a carried residual, as on the main path after its first
-    batch) and K3 at one boundary shape: device times beside the bound."""
+    """K2 (with a carried residual and without z, as on the main path
+    after its first batch) and K3 at one boundary shape: device times
+    beside the bound."""
     x, res = quant_inputs(rows, C, 7, True, torch)
     q, lo, scale, *_ = qops.quantize_ef(x, res)
     n = rows * C
@@ -258,16 +269,17 @@ def quant_timings(rows, C, torch, qops, qref):
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
         return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
-    # K2 reads x, res; writes q (1 byte), res', z and lo, scale; about
-    # 12 f32 operations an element (add, min, max, sub, div, rint, 2
-    # clamps, mul, add, sub, finite test)
-    k2_ms, k2_by = bound(17 * n + 8 * C, 12 * n)
+    # K2 reads x, res; writes q (1 byte), res' and lo, scale; about 12
+    # f32 operations an element (add, min, max, sub, div, rint, 2 clamps,
+    # mul, add, sub, finite test)
+    k2_ms, k2_by = bound(13 * n + 8 * C, 12 * n)
     # K3 reads q, lo, scale; writes the f32 tensor; 3 operations (cvt,
     # mul, add)
     k3_ms, k3_by = bound(5 * n + 8 * C, 3 * n)
     return (
         {"rows": rows, "C": C,
-         "ms": time_ms(lambda: qops.quantize_ef(x, res), torch),
+         "ms": time_ms(lambda: qops.quantize_ef(x, res, with_z=False),
+                       torch),
          "plain_ms": time_ms(lambda: qref.quantize_ef_reference(x, res),
                              torch),
          "bound_ms": k2_ms, "bound_by": k2_by},
@@ -344,11 +356,12 @@ def implied_launches(res, per_batch):
                               if b0 <= b][-1])) for b in range(NUM_BATCHES))
 
 
-def live_run(torch, tier, counters, profile):
-    """``run_live_training`` of MobileNetV2-CIFAR on the card, every
-    payload through the wire codec on ``tier``, partitioned from the
-    given layer ``profile`` (one measurement shared by the runs, so their
-    partitions do not differ by timing noise). The launch counts in
+def live_run(torch, counters, tier=None, profile=None):
+    """``run_live_training`` of MobileNetV2-CIFAR on the card. With
+    ``tier`` None, on the default data plane (device tensors handed
+    between the workers, no codec) and the run's own measured profile;
+    else every payload goes through the wire codec on ``tier``, and the
+    partitions come from the given layer ``profile``. The launch counts in
     ``counters`` are set to 0 just before the run and read just after."""
     from repro_torch.runtime.devices import DeviceSpec, uniform_bandwidth
     from repro_torch.runtime.live import LiveConfig, run_live_training
@@ -356,6 +369,9 @@ def live_run(torch, tier, counters, profile):
     from repro_torch.runtime.workload import WorkloadSpec
     chain, batches = WorkloadSpec(kind="mobilenet", image_hw=32,
                                   batch_size=64, seed=0).build(device="cuda")
+    wire = ({} if tier is None else
+            dict(profile=profile, wire_codec=True, wire_compress=tier,
+                 wire_compress_replica="off"))
     cfg = LiveConfig(
         num_workers=3, num_batches=NUM_BATCHES,
         protocol=ProtocolConfig(chain_every=10, global_every=20,
@@ -365,8 +381,7 @@ def live_run(torch, tier, counters, profile):
         device_specs=[DeviceSpec("central", 1.0), DeviceSpec("peer", 1.0),
                       DeviceSpec("slow", 4.0)],
         bandwidth=uniform_bandwidth(3, 1e9), capacity_source="spec",
-        profile=profile, kill=KILL, segment_timeout=120.0, wire_codec=True,
-        wire_compress=tier, wire_compress_replica="off", device="cuda")
+        kill=KILL, segment_timeout=120.0, device="cuda", **wire)
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -383,7 +398,8 @@ def live_run(torch, tier, counters, profile):
     kb = res.transport_stats["kind_bytes"]
     summary = {
         "workload": "mobilenetv2-cifar 32x32 batch 64, 19 layers, 3 workers",
-        "wire": tier, "batches": NUM_BATCHES, "wall_s": wall,
+        "wire": "default (no codec)" if tier is None else f"codec {tier}",
+        "batches": NUM_BATCHES, "wall_s": wall,
         "batches_per_s": NUM_BATCHES / wall,
         "committed": sorted(res.commit_times) == list(range(NUM_BATCHES)),
         "all_finite": all(v == v and abs(v) != float("inf") for v in losses),
@@ -410,26 +426,58 @@ def live_run(torch, tier, counters, profile):
     return res, summary
 
 
-def fused_live_run(torch, counters, profile, off_res, off):
-    """Phase F: the int8-fused tier against phase 3's exact run."""
-    res, summary = live_run(torch, "int8-fused", counters, profile)
-    launches = summary["launches"]
-    diffs = [abs(float(a) - float(b))
-             for a, b in zip(res.losses, off_res.losses)]
+def fused_phase(torch, counters, probe, probe_batch):
+    """Phase F: the exact and the int8-fused tier through the codec, on
+    one measured profile and with deterministic convolution backwards
+    (cuDNN's default algorithms make two runs' losses differ by
+    rounding), so that the two runs differ only by their wire tier. A
+    third run, exact again but on cuDNN's default algorithms, shows how
+    far rounding alone moves the losses. Returns the results of the runs
+    and the fused run's summary."""
+    probe.measure_profile(probe_batch, repeats=2)            # warm-up
+    profile = probe.measure_profile(probe_batch, repeats=2)
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        off_res, off = live_run(torch, counters, "off", profile)
+        check(off["launches"]["quantize_ef"] == off["launches"]["dequantize"]
+              == 0, "the off tier launched a quant kernel")
+        res, fused = live_run(torch, counters, "int8-fused", profile)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    noisy_res, noisy = live_run(torch, counters, "off", profile)
+    launches = fused["launches"]
+    # after the kill, losses are comparable only along the same history:
+    # the same partitions, resumed at the same batch
+    for key in ("partitions", "restart"):
+        check(fused[key] == off[key],
+              f"the int8-fused and off runs differ in {key} ({fused[key]} "
+              f"vs {off[key]}): their losses after the kill are not "
+              f"comparable")
+    diffs = [abs(a - b) for a, b in zip(fused["losses"], off["losses"])]
     # Per batch, the limit holds up to the kill: a failure-free run, the
     # setting of the JAX package's own check of this tier. Over the whole
-    # run the two trajectories drift apart like any two nearby ones (on
-    # the card, the per-batch gap after the recovery reached 0.044 and
-    # 0.056 in two runs), so there the training outcome is compared: the
+    # run the two trajectories drift apart like any two nearby ones (see
+    # the witness below), so there the training outcome is compared: the
     # mean loss of the last 5 batches.
     pre_kill = max(diffs[:KILL[1]])
-    last5 = abs(summary["loss_last5"] - off["loss_last5"])
-    ratio = ((summary["act_bytes"] + summary["grad_bytes"])
+    last5 = abs(fused["loss_last5"] - off["loss_last5"])
+    ratio = ((fused["act_bytes"] + fused["grad_bytes"])
              / (off["act_bytes"] + off["grad_bytes"]))
     log(f"int8-fused vs off: max |loss diff| {pre_kill:.3g} before the "
         f"kill, {max(diffs):.3g} over the run; last-5 mean diff "
         f"{last5:.3g}; act+grad bytes ratio {ratio:.4f}; launches "
         f"{launches}")
+    # witness of how far two exact runs drift apart from rounding alone
+    # (where they took the same history)
+    same = all(noisy[k] == off[k] for k in ("partitions", "restart"))
+    witness = (max(abs(a - b) for a, b in zip(noisy["losses"], off["losses"]))
+               if same else None)
+    log("off on cuDNN's default algorithms vs off deterministic: "
+        + (f"same history, max |loss diff| {witness:.3g}" if same else
+           f"different histories ({noisy['partitions']} restart "
+           f"{noisy['restart']}), no witness"))
     check(pre_kill <= FUSED_LOSS_TOL,
           f"int8-fused losses {pre_kill} from the off tier's before the "
           f"kill (> {FUSED_LOSS_TOL})")
@@ -445,10 +493,18 @@ def fused_live_run(torch, counters, profile, off_res, off):
         check(launches[name] > 0 and launches[name] >= need,
               f"{name} launched {launches[name]} times on the main path, "
               f"for >= {need} implied by its partitions")
-    summary.update(max_loss_diff_vs_off_before_kill=pre_kill,
-                   max_loss_diff_vs_off=max(diffs),
-                   last5_loss_diff_vs_off=last5, act_grad_bytes_ratio=ratio)
-    return summary
+    fused.update(max_loss_diff_vs_off_before_kill=pre_kill,
+                 max_loss_diff_vs_off=max(diffs),
+                 last5_loss_diff_vs_off=last5, act_grad_bytes_ratio=ratio,
+                 max_loss_diff_off_nondeterministic_vs_off=witness)
+    print(json.dumps({"fused_vs_off": {
+        k: fused[k] for k in ("max_loss_diff_vs_off_before_kill",
+                              "max_loss_diff_vs_off",
+                              "last5_loss_diff_vs_off",
+                              "act_grad_bytes_ratio",
+                              "max_loss_diff_off_nondeterministic_vs_off")}}),
+          flush=True)
+    return (off_res, res, noisy_res), fused
 
 
 def main():
@@ -477,11 +533,6 @@ def main():
             log(f"  {line}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    # deterministic convolution backwards: two live runs on the same
-    # profile then differ only by their wire tier (cuDNN's default
-    # algorithms make two runs' losses differ by rounding)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
     from repro_torch.runtime.workload import WorkloadSpec
     probe, probe_batches = WorkloadSpec(
         kind="mobilenet", image_hw=32, batch_size=64).build(device="cuda")
@@ -499,20 +550,20 @@ def main():
     # ---- phase 2: the port on the card against the CPU --------------------
     cross_device_checks(torch)
 
-    # ---- phase 3: the main path on the exact wire ---------------------------
+    # ---- phase 3: the main path ---------------------------------------------
     counters = {"fused_sgd": ops.fused_sgd, "quantize_ef": qops.quantize_ef,
                 "dequantize": qops.dequantize}
-    probe.measure_profile(probe_batches[0], repeats=2)      # warm-up
-    profile = probe.measure_profile(probe_batches[0], repeats=2)
-    res, off = live_run(torch, "off", counters, profile)
-    check(off["launches"]["quantize_ef"] == off["launches"]["dequantize"]
-          == 0, "the off tier launched a quant kernel")
+    res, main_run = live_run(torch, counters)
+    check(main_run["launches"]["quantize_ef"]
+          == main_run["launches"]["dequantize"] == 0,
+          "the default data plane launched a quant kernel")
 
-    # ---- phase F: the main path on the int8-fused wire ----------------------
-    fused = fused_live_run(torch, counters, profile, res, off)
+    # ---- phase F: the main path on the exact and int8-fused wire ------------
+    f_runs, fused = fused_phase(torch, counters, probe, probe_batches[0])
 
     # ---- phase 4: K1 at the run's slice sizes, then timings -----------------
-    sizes = sorted({s for _, pts in res.partitions
+    sizes = sorted({s for r in (res, *f_runs)
+                    for _, pts in r.partitions
                     for s in stage_sizes(layout, pts)})
     for n in sizes:
         max_diff = max(max_diff, kernel_vs_plain(n, n + 1, torch, ops, ref))
@@ -525,9 +576,8 @@ def main():
         "name": "fused_sgd", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_sgd.cu",
         "replaces": "src/repro/kernels/fused_sgd/kernel.py:23",
-        "launches": off["launches"]["fused_sgd"], "max_abs_err": max_diff,
-        "max_abs_diff": max_diff, "kernel_ms": full["ms"], **full,
-        "per_slice": per_slice}]
+        "launches": main_run["launches"]["fused_sgd"],
+        "max_abs_err": max_diff, **full, "per_slice": per_slice}]
     no_library = ("no single PyTorch call computes it: "
                   "torch.quantize_per_channel takes its scales as inputs "
                   "and uses a zero point")
@@ -541,8 +591,8 @@ def main():
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/quant.cu", "replaces": replaces,
             "launches": fused["launches"][name], "max_abs_err": quant_err,
-            "kernel_ms": top["ms"], "ms": top["ms"],
-            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": None,
             "library_note": no_library, "per_shape": list(times)})
     print(json.dumps({"kernels": kernels}), flush=True)

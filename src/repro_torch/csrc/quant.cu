@@ -22,12 +22,14 @@
 //   B. quant_apply: elementwise over the flat index, c = i % C.
 // Nothing is padded: every kernel masks its ragged edge.
 //
-// Bound: memory. K2 reads x and res and writes q, res' and z (17 bytes an
-// element; 9 without res, where z is x itself and is not written); K3
-// reads q and writes x (5 bytes). At the largest MobileNetV2 boundary,
-// [65536, 32], that is 35.7 MB (10.6 us) and 10.5 MB (3.1 us) at the
-// H100 SXM's 3.35 TB/s. This first version reads x and res twice (passes
-// A and B) with plain 4-byte loads; fusing the passes is later work.
+// Bound: memory. K2 reads x and res and writes q and res' (13 bytes an
+// element; 9 without res), as the Pallas kernel it replaces does; z is
+// written only when the caller asks for it (17 bytes then), which the
+// live runtime does not. K3 reads q and writes x (5 bytes). At the
+// largest MobileNetV2 boundary, [65536, 32], that is 27.3 MB (8.1 us) and
+// 10.5 MB (3.1 us) at the H100 SXM's 3.35 TB/s. This first version reads
+// x and res twice (passes A and B) with plain 4-byte loads; fusing the
+// passes is later work.
 //
 // Every operation is rounded on its own (__fadd_rn, __fsub_rn, __fmul_rn,
 // __fdiv_rn; rintf rounds half to even), in the plain PyTorch version's
@@ -126,7 +128,7 @@ __global__ void quant_apply(const float* __restrict__ x,
     float z = x[i];
     if (res) {
       z = __fadd_rn(z, res[i]);
-      z_out[i] = z;
+      if (z_out) z_out[i] = z;
     }
     const float l = lo[c], s = scale[c];
     float qf = 0.0f;
@@ -159,9 +161,10 @@ unsigned elementwise_blocks(long long n) {
 }  // namespace
 
 // K2 on `stream`; returns cudaGetLastError() (0 on success). x, res (or
-// null), q, res_out and z_out (unused when res is null) hold rows*C
-// elements; lo_out and scale_out C floats; ok one byte; scratch 2*C+1
-// u32. The caller owns every buffer; nothing is allocated.
+// null), q, res_out and z_out (or null: z is not written; unused when res
+// is null) hold rows*C elements; lo_out and scale_out C floats; ok one
+// byte; scratch 2*C+1 u32. The caller owns every buffer; nothing is
+// allocated.
 extern "C" int quantize_ef_launch(const float* x, const float* res,
                                   long long rows, int C, int levels,
                                   float inv_levels, unsigned char* q,

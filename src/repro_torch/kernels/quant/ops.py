@@ -56,7 +56,7 @@ def _device_of(t) -> torch.device:
     return t.device
 
 
-def quantize_ef(x, res=None, *, levels: int = 255):
+def quantize_ef(x, res=None, *, levels: int = 255, with_z: bool = True):
     """Fused per-channel affine quantize with error feedback.
 
     ``x``: f32 [..., C] (channel = last axis); ``res``: carried residual
@@ -68,7 +68,10 @@ def quantize_ef(x, res=None, *, levels: int = 255):
     residual ``z - dequantize(q)``; ``ok`` a 0-d bool tensor on the
     device, False when ``z`` has non-finite values (ship ``z`` exactly
     then, and reset the residual); ``z`` = ``x + res`` (``x`` itself when
-    ``res`` is None). Counts each launch in ``quantize_ef.launches``."""
+    ``res`` is None), or None with ``with_z=False``, where the kernel
+    does not write it (the live runtime forms ``x + res`` itself in the
+    rare non-finite case). Counts each launch in
+    ``quantize_ef.launches``."""
     _check("x", x, torch.float32)
     if x.dim() < 1 or x.numel() == 0:
         raise ValueError(f"quantize_ef needs a non-empty tensor, got shape "
@@ -80,27 +83,30 @@ def quantize_ef(x, res=None, *, levels: int = 255):
     if res is not None:
         _check("res", res, torch.float32, x.shape, device)
     if device.type == "cpu":
-        return quantize_ef_reference(x, res, levels=levels)
+        out = quantize_ef_reference(x, res, levels=levels)
+        return out if with_z else out[:5] + (None,)
     C = x.shape[-1]
     rows = x.numel() // C
     q = torch.empty(x.shape, dtype=torch.uint8, device=device)
     lo = torch.empty(C, dtype=torch.float32, device=device)
     scale = torch.empty(C, dtype=torch.float32, device=device)
     res2 = torch.empty_like(x)
-    z = x if res is None else torch.empty_like(x)
+    z_out = torch.empty_like(x) if with_z and res is not None else None
     ok = torch.empty((), dtype=torch.bool, device=device)
     scratch = torch.empty(2 * C + 1, dtype=torch.int32, device=device)
     launch, _ = _library()
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = launch(x.data_ptr(), None if res is None else res.data_ptr(), rows,
                 C, levels, inv_levels(levels), q.data_ptr(), lo.data_ptr(),
-                scale.data_ptr(), res2.data_ptr(), z.data_ptr(), ok.data_ptr(),
+                scale.data_ptr(), res2.data_ptr(),
+                None if z_out is None else z_out.data_ptr(), ok.data_ptr(),
                 scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"quantize_ef kernel launch failed: CUDA error "
                            f"{rc}")
     with _count_lock:
         quantize_ef.launches += 1
+    z = (x if res is None else z_out) if with_z else None
     return q, lo, scale, res2, ok, z
 
 

@@ -233,9 +233,10 @@ class StageExecutor:
         ``t + res`` is not finite — the exact f32 values on the host and a
         zero residual (``bool(ok)`` is the one sync)."""
         t = t.detach().contiguous()
-        q, lo, scale, res2, ok, z = quantize_ef(t, res)
+        q, lo, scale, res2, ok, _ = quantize_ef(t, res, with_z=False)
         if bool(ok):
             return DeviceQuantized.from_arrays(q, lo, scale), res2
+        z = t if res is None else t + res     # K2's z, formed only here
         return host_array(z), torch.zeros_like(res2)
 
     def forward(self, buf, x, batch=None):

@@ -131,7 +131,11 @@ def test_fused_tier_losses_track_reference_and_exact_wire(fused_runs):
     ref, fused, off = fused_runs
     for res in fused_runs:
         assert len(res.losses) == 10 and np.isfinite(res.losses).all()
-    assert float(np.max(np.abs(fused.losses - ref.losses))) <= 0.05
+    # the port follows the JAX package's own fused run to f32 rounding
+    # (1.2e-7 measured; the two differ only where the JAX CPU path
+    # contracts lo + scale*q into an FMA). Dropping or negating the
+    # residual moves the losses by about 4e-4, as does the off tier.
+    assert float(np.max(np.abs(fused.losses - ref.losses))) <= 1e-5
     assert float(np.max(np.abs(fused.losses - off.losses))) <= 0.05
 
 

@@ -133,6 +133,20 @@ def test_non_finite_input_reports_not_ok_like_jax(where):
     np.testing.assert_array_equal(z.numpy(), np.asarray(rz))   # x + res
 
 
+@pytest.mark.parametrize("with_res", [False, True])
+def test_quantize_without_z_returns_the_same_codes(with_res):
+    """``with_z=False`` (how the live runtime calls K2) leaves out z and
+    nothing else."""
+    x = torch.from_numpy(_sample((64, 5), "mixed", 12))
+    res = torch.from_numpy(_sample((64, 5), "normal", 13) * 0.01) \
+        if with_res else None
+    full = quantize_ef(x, res, levels=255)
+    lean = quantize_ef(x, res, levels=255, with_z=False)
+    assert lean[5] is None
+    for a, b in zip(full[:5], lean[:5]):
+        assert torch.equal(a, b)
+
+
 def test_quantize_ef_rejects_degenerate_inputs():
     with pytest.raises(ValueError):
         quantize_ef(torch.tensor(3.0))                   # rank 0
@@ -260,3 +274,19 @@ def test_stage_executor_nan_falls_back_to_exact(mlp):
     assert isinstance(rpayload, np.ndarray)
     np.testing.assert_array_equal(np.isnan(payload), np.isnan(rpayload))
     assert torch.equal(res, torch.zeros_like(res))   # residual reset
+
+
+def test_stage_executor_non_finite_residual_ships_x_plus_res(mlp):
+    """With a carried residual, the exact fallback ships ``y + res``, the
+    tensor K2 would have quantized, and resets the residual."""
+    _, _, ex_p, pbuf, _ = _executors(mlp, 0, 2)
+    x = np.random.default_rng(3).normal(size=(8, 8)).astype(np.float32)
+    y = ex_p.forward(pbuf, x)
+    res = torch.from_numpy(
+        np.random.default_rng(4).normal(size=tuple(y.shape)).astype(
+            np.float32) * 0.01)
+    res[2, 1] = float("inf")
+    payload, res2 = ex_p.forward_q(pbuf, x, res)
+    assert isinstance(payload, np.ndarray)
+    np.testing.assert_array_equal(payload, (y + res).numpy())
+    assert torch.equal(res2, torch.zeros_like(res2))
