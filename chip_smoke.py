@@ -33,9 +33,31 @@ Phases, each fatal on failure (exit code 1, no result line):
      algorithms prints how far rounding alone moves the losses. Before
      each run the kernels' launch counts are reset, and they are read
      just after;
+  A. hold flash attention (K4) against its plain version on the card at
+     qwen2-1.5b's heads (H=12, Hkv=2, dh=128), B=4: S=2048 causal,
+     S=1000 ragged causal, S=2048 with a 256 window, S=1000 non-causal,
+     a 512-row chunk at q_offset 1536 over 2048 keys, each in f32, bf16
+     and bf16 q over f32 k/v; and dh=32, 64 at small sizes. Limits are
+     the JAX package's own: 5e-5 max abs in f32, 2e-2 in bf16;
+  T. the dense transformer serving path at the full width of qwen2-1.5b
+     (28 layers, d=1536, GQA 12:2, dh=128, vocab 151,936; random weights
+     from seed 0, prompts from ``SyntheticLM``): (i) prefill through
+     ``sequential_lm_forward`` at B=4, S=2048 with K4 against the same
+     call on the plain attention path, in f32 (max abs logit difference
+     <= 1e-3) and in bf16 (relative L2 <= 2e-2), 28 K4 launches a
+     forward; (ii) 4 chunks of 512 through every slot's
+     ``prefill_chunk`` into a KV cache (112 K4 launches), then 8
+     ``sequential_decode_step``s (no K4), each held against a flash
+     forward over the same tokens (<= 1e-3); (iii) ``ServingEngine``
+     (4 slots, cache 128) answers 8 greedy requests, each step's logits
+     within 1e-4 of a standalone decode of the same tokens, and its
+     tokens the standalone's wherever the top-2 logit gap exceeds 1e-3;
+     prefill and decode tokens/s printed;
   4. K1 again at every stage-slice size the run used, then each kernel's
-     time beside its bound, its plain version's and, for K1, one library
-     call's (``torch.optim.SGD(fused=True)``, a yardstick the port never
+     time beside its bound, its plain version's and, where one PyTorch
+     call computes the same function, that call's (K1:
+     ``torch.optim.SGD(fused=True)``; K4:
+     ``F.scaled_dot_product_attention``; yardsticks the port never
      calls; no single PyTorch call computes K2 or K3).
 
 The last three lines of standard output are the kernels' JSON line, the
@@ -57,6 +79,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM, bf16 on the tensor cores, dense
+FLASH_TOL = {"float32": 5e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:31
+PREFILL_B, PREFILL_S, CHUNK, DECODE_STEPS = 4, 2048, 512, 8
 LR, MOMENTUM, WEIGHT_DECAY = 0.005, 0.9, 4e-5
 NUM_BATCHES, KILL = 30, (1, 12)
 FUSED_LOSS_TOL, FUSED_BYTES_RATIO = 0.05, 0.6
@@ -507,6 +532,341 @@ def fused_phase(torch, counters, probe, probe_batch):
     return (off_res, res, noisy_res), fused
 
 
+# ------------------------- flash attention (K4) --------------------------
+
+def flash_shapes():
+    """(B, H, Hkv, Sq, Skv, dh, causal, window, q_offset) of phase A: the
+    slice's shapes at qwen2-1.5b's heads, then the smaller head dims."""
+    H, Hkv, dh = 12, 2, 128
+    big = [(4, H, Hkv, 2048, 2048, dh, True, 0, 0),
+           (4, H, Hkv, 1000, 1000, dh, True, 0, 0),
+           (4, H, Hkv, 2048, 2048, dh, True, 256, 0),
+           (4, H, Hkv, 1000, 1000, dh, False, 0, 0),
+           (4, H, Hkv, 512, 2048, dh, True, 0, 1536)]
+    small = [(2, 4, 2, 200, 200, d, True, 64, 0) for d in (32, 64)]
+    small += [(2, 4, 2, 130, 130, d, False, 0, 0) for d in (32, 64)]
+    return big, small
+
+
+def describe(shape):
+    B, H, Hkv, Sq, Skv, dh, causal, window, off = shape
+    return (f"B={B} H={H} Hkv={Hkv} Sq={Sq} Skv={Skv} dh={dh} "
+            f"causal={causal} window={window} q_offset={off}")
+
+
+def flash_inputs(shape, dq, dkv, seed, torch):
+    B, H, Hkv, Sq, Skv, dh = shape[:6]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, H, Sq, dh, generator=gen, device="cuda").to(dq)
+    k = torch.randn(B, Hkv, Skv, dh, generator=gen, device="cuda").to(dkv)
+    v = torch.randn(B, Hkv, Skv, dh, generator=gen, device="cuda").to(dkv)
+    return q, k, v
+
+
+def flash_phase(torch, fops, fref):
+    """Phase A. Returns the max |kernel - plain| by q's dtype."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    types = {"f32": (f32, f32), "bf16": (bf16, bf16),
+             "bf16 q over f32 kv": (bf16, f32)}
+    big, small = flash_shapes()
+    cases = [(sh, t) for sh in big for t in types]
+    cases += [(sh, t) for sh in small for t in ("f32", "bf16")]
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (shape, name) in enumerate(cases):
+        dq, dkv = types[name]
+        q, k, v = flash_inputs(shape, dq, dkv, i, torch)
+        B, H, Hkv, Sq, Skv, dh, causal, window, off = shape
+        got = fops.flash_attention_kernel(q, k, v, off, causal=causal,
+                                          window=window)
+        want = fref.attention_reference(q, k, v, causal=causal,
+                                        window=window, q_offset=off)
+        torch.cuda.synchronize()
+        key = str(dq).removeprefix("torch.")
+        check(got.dtype == dq and got.shape == want.shape
+              and bool(torch.isfinite(got).all()),
+              f"flash_attention output at {describe(shape)} {name}")
+        err = abs_err(got, want)
+        log(f"  K4 {describe(shape)} {name}: max abs err {err:.3g} "
+            f"(limit {FLASH_TOL[key]})")
+        check(err <= FLASH_TOL[key], f"flash_attention differs from its "
+              f"plain version by {err} at {describe(shape)} {name}")
+        errs[key] = max(errs[key], err)
+    log(f"flash_attention within the limits over {len(cases)} cases")
+    return errs
+
+
+def visited_pairs(Sq, Skv, off, causal, window):
+    """(query, key) pairs the masks keep: the work these inputs need."""
+    import numpy as np
+    pos = off + np.arange(Sq)
+    hi = np.minimum(Skv - 1, pos) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(0, pos - window + 1) if window else np.zeros(Sq, int)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_timings(shape, torch, fops, fref):
+    """K4 in bf16 at one shape: device time beside its bound, the plain
+    version's and, where one PyTorch call computes the same function
+    (no window, no offset), ``scaled_dot_product_attention``'s."""
+    import torch.nn.functional as F
+    B, H, Hkv, Sq, Skv, dh, causal, window, off = shape
+    q, k, v = flash_inputs(shape, torch.bfloat16, torch.bfloat16, 99, torch)
+    # 2 flops a multiply-add; q.k and p.v each dh of them for every pair
+    flops = 4 * B * H * dh * visited_pairs(Sq, Skv, off, causal, window)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, out, k, v
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    out = {"B": B, "H": H, "Hkv": Hkv, "Sq": Sq, "Skv": Skv, "dh": dh,
+           "causal": causal, "window": window, "q_offset": off,
+           "dtype": "bfloat16", "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+           "ms": time_ms(lambda: fops.flash_attention_kernel(
+               q, k, v, off, causal=causal, window=window), torch),
+           "plain_ms": time_ms(lambda: fref.attention_reference(
+               q, k, v, causal=causal, window=window, q_offset=off), torch),
+           "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": None}
+    if window or off or Sq != Skv:
+        out["library_note"] = ("no single PyTorch call: "
+                               "scaled_dot_product_attention has no sliding "
+                               "window nor query offset")
+        return out
+    try:
+        F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                       enable_gqa=True)
+        lib = (lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True))
+    except TypeError:                      # no enable_gqa: expand first
+        ke, ve = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+        lib = (lambda: F.scaled_dot_product_attention(q, ke, ve,
+                                                      is_causal=causal))
+    out["library_ms"] = time_ms(lib, torch)
+    return out
+
+
+# --------------------- the dense transformer slice (T) -------------------
+
+def prefill_chunks(params, cfg, tokens, caches, chunk):
+    """Chunked prefill on one device: each chunk of ``tokens`` runs
+    through every slot's ``prefill_chunk`` (K4 with a ``q_offset``),
+    appending its kv to ``caches`` (written in place). Returns the last
+    position's logits."""
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    from repro_torch.models import modules
+    from repro_torch.models.blocks import BLOCKS, BlockCtx
+    dtype = modules.dtype_of(cfg.dtype)
+    pm = M.pad_mask(cfg, device=tokens.device)
+    for start in range(0, tokens.shape[1], chunk):
+        x = params["embed"]["table"].to(dtype)[tokens[:, start:start + chunk]]
+        for s in range(cfg.pipeline_stages):
+            for j, t in enumerate(cfg.slot_layout):
+                ctx = BlockCtx(cfg=cfg, pos=start, dtype=dtype,
+                               active=pm[s, j], window=cfg.sliding_window)
+                x, c_out = BLOCKS[t].prefill_chunk(
+                    M._slot_params(params["blocks"][j], s), x,
+                    tree.map(lambda a: a[s], caches[j]), ctx)
+                for full, upd in zip(tree.leaves(caches[j]),
+                                     tree.leaves(c_out)):
+                    full[s] = upd
+    return M.head(params, cfg, x)[:, -1]
+
+
+def transformer_phase(torch, fops, cfg=None, device="cuda"):
+    """Phase T: prefill, chunked prefill + decode, and serving, at the
+    full width of qwen2-1.5b (``cfg`` and ``device`` other than the
+    defaults only to rehearse the phase at a small size). Returns its
+    summary."""
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServingEngine
+    K = fops.flash_attention_kernel
+    t_phase = time.perf_counter()
+    if cfg is None:
+        cfg = get_config("qwen2-1.5b").with_overrides(tensor_parallel=1,
+                                                      use_flash_attention=1)
+        check(cfg.num_layers == 28 and cfg.d_model == 1536
+              and cfg.num_heads == 12 and cfg.num_kv_heads == 2
+              and cfg.head_dim == 128 and cfg.vocab_size == 151_936,
+              f"qwen2-1.5b at its published widths: {cfg}")
+    cfg32 = cfg.with_overrides(dtype="float32")
+    n_slots = cfg.pipeline_stages * cfg.layers_per_stage
+    check(n_slots == cfg.num_layers, f"{n_slots} slots for "
+          f"{cfg.num_layers} layers")
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    params = M.init_params(0, cfg, device=device)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    lm = SyntheticLM(vocab_size=cfg.vocab_size, seed=0)
+    toks, _ = lm.sample(np.random.default_rng(0), PREFILL_B,
+                        PREFILL_S + DECODE_STEPS)
+    tokens = torch.as_tensor(toks, device=device)
+    prompt = tokens[:, :PREFILL_S]
+    log(f"{cfg.name}: {n_params:,} parameters (f32), {n_slots} slots; "
+        f"prompts [{PREFILL_B}, {PREFILL_S}] from SyntheticLM")
+    summary = {"config": f"{cfg.name} tensor_parallel=1 "
+                         f"use_flash_attention=1", "parameters": n_params}
+
+    def forward(c, toks_):
+        """Logits of one sequential_lm_forward and the K4 launches it
+        made (the count is set to 0 just before, read just after)."""
+        K.launches = 0
+        logits = M.sequential_lm_forward(params, c, toks_)[0]
+        sync()
+        return logits, K.launches
+
+    with torch.no_grad():
+        # ---- (i) prefill: K4 against the plain attention path ----------
+        flash, n = forward(cfg32, prompt)
+        plain, n0 = forward(cfg32.with_overrides(use_flash_attention=0),
+                            prompt)
+        check(n == n_slots and n0 == 0,
+              f"f32 prefill: {n} K4 launches with flash, {n0} without")
+        err = (flash - plain).abs().max().item()
+        log(f"(i) f32 prefill B={PREFILL_B} S={PREFILL_S}: max |logit "
+            f"flash - plain| {err:.3g}; K4 launches {n}")
+        check(bool(torch.isfinite(flash).all()), "non-finite f32 logits")
+        check(err <= 1e-3, f"f32 prefill logits differ by {err} (> 1e-3)")
+        del flash, plain
+        forward(cfg, prompt)                               # warm-up
+        t0 = time.perf_counter()
+        flash, n = forward(cfg, prompt)
+        prefill_s = time.perf_counter() - t0
+        plain, n0 = forward(cfg.with_overrides(use_flash_attention=0),
+                            prompt)
+        check(n == n_slots and n0 == 0,
+              f"bf16 prefill: {n} K4 launches with flash, {n0} without")
+        rel = ((flash - plain).norm() / plain.norm()).item()
+        top1 = (flash.argmax(-1) == plain.argmax(-1)).float().mean().item()
+        log(f"(i) bf16 prefill: rel L2 {rel:.3g}, top-1 agreement "
+            f"{top1:.4f}; {PREFILL_B * PREFILL_S / prefill_s:,.0f} tokens/s "
+            f"({prefill_s * 1e3:.1f} ms)")
+        check(bool(torch.isfinite(flash).all()), "non-finite bf16 logits")
+        check(rel <= 2e-2, f"bf16 prefill rel L2 {rel} (> 2e-2)")
+        summary.update(prefill_f32_max_abs_diff=err, prefill_bf16_rel_l2=rel,
+                       prefill_bf16_top1_agreement=top1,
+                       prefill_bf16_ms=prefill_s * 1e3,
+                       prefill_tokens_per_s=PREFILL_B * PREFILL_S
+                       / prefill_s, k4_launches_per_prefill=n)
+        del flash, plain
+
+        # ---- (ii) chunked prefill into the cache, then decode ----------
+        caches = M.init_caches(cfg32, batch=PREFILL_B,
+                               cache_len=PREFILL_S + DECODE_STEPS,
+                               dtype=torch.float32, device=device)
+        K.launches = 0
+        last = prefill_chunks(params, cfg32, prompt, caches, CHUNK)
+        sync()
+        n_chunks = K.launches
+        K.launches = 0
+        steps = []
+        for t in range(DECODE_STEPS):
+            lg, caches = M.sequential_decode_step(
+                params, cfg32, tokens[:, PREFILL_S + t:PREFILL_S + t + 1],
+                caches, PREFILL_S + t)
+            steps.append(lg[:, 0])
+        sync()
+        n_decode = K.launches
+        ref = M.sequential_lm_forward(params, cfg32, tokens)[0][
+            :, PREFILL_S - 1:]
+        err_last = (last - ref[:, 0]).abs().max().item()
+        err_dec = max((lg - ref[:, 1 + t]).abs().max().item()
+                      for t, lg in enumerate(steps))
+        log(f"(ii) {PREFILL_S // CHUNK} chunks of {CHUNK}: last logits "
+            f"{err_last:.3g} from a flash forward, K4 launches {n_chunks}; "
+            f"{DECODE_STEPS} decode steps: {err_dec:.3g}, K4 launches "
+            f"{n_decode}")
+        check(n_chunks == n_slots * PREFILL_S // CHUNK,
+              f"{n_chunks} K4 launches in the chunked prefill")
+        check(n_decode == 0, f"decode launched K4 {n_decode} times")
+        check(err_last <= 1e-3 and err_dec <= 1e-3,
+              f"chunked prefill / decode logits off by {err_last}, "
+              f"{err_dec} (> 1e-3)")
+        summary.update(chunked_prefill_max_abs_diff=err_last,
+                       decode_max_abs_diff=err_dec,
+                       k4_launches_chunked_prefill=n_chunks,
+                       k4_launches_decode=n_decode)
+        del caches, ref, steps, last
+
+    # ---- (iii) serving: continuous batching against standalone decode ---
+    class Recording(ServingEngine):
+        """Keeps each request's logits row of every engine step."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.rows = {}
+
+        def _decode_step(self, params_, caches_, tokens_, pos_):
+            logits, new = super()._decode_step(params_, caches_, tokens_,
+                                               pos_)
+            for i, r in enumerate(self._slots):
+                if r is not None:
+                    self.rows.setdefault(r.uid, []).append(logits[i].clone())
+            return logits, new
+
+    rng = np.random.default_rng(1)
+    prompts = [lm.sample(rng, 1, int(n))[0][0].tolist()
+               for n in rng.integers(8, 65, 8)]
+    eng = Recording(cfg32, params, max_slots=4, cache_len=128, device=device)
+    uids = [eng.submit(p, max_new_tokens=16) for p in prompts]
+    K.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    out = eng.run_until_drained()
+    sync()
+    serve_s = time.perf_counter() - t0
+    n_serve = K.launches
+    check(n_serve == 0, f"serving launched K4 {n_serve} times")
+    check(all(len(out[u]) == 16 for u in uids), "a request was cut short")
+    worst, min_gap, n_checked = 0.0, float("inf"), 0
+    with torch.no_grad():
+        for p, u in zip(prompts, uids):
+            caches = M.init_caches(cfg32, batch=1, cache_len=128,
+                                   dtype=torch.float32, device=device)
+            fed = p + out[u][:-1]
+            rows = eng.rows[u]
+            check(len(rows) == len(fed), f"request {u}: {len(rows)} steps "
+                  f"for {len(fed)} tokens")
+            for pos, tok in enumerate(fed):
+                lg, caches = M.sequential_decode_step(params, cfg32, [[tok]],
+                                                      caches, pos)
+                row = lg[0, 0]
+                worst = max(worst, (row - rows[pos]).abs().max().item())
+                k = pos - (len(p) - 1)
+                if k >= 0:
+                    top2 = torch.topk(row, 2).values
+                    gap = (top2[0] - top2[1]).item()
+                    min_gap = min(min_gap, gap)
+                    if gap > 1e-3:
+                        n_checked += 1
+                        check(int(row.argmax()) == out[u][k],
+                              f"request {u} token {k}: engine "
+                              f"{out[u][k]}, standalone "
+                              f"{int(row.argmax())} (gap {gap:.3g})")
+    fed_total = sum(len(p) + 15 for p in prompts)
+    log(f"(iii) ServingEngine: 8 requests (prompts "
+        f"{[len(p) for p in prompts]}), 16 new tokens each, in "
+        f"{serve_s:.2f}s: {128 / serve_s:.1f} generated tokens/s, "
+        f"{fed_total / serve_s:.1f} tokens fed/s; logits within "
+        f"{worst:.3g} of standalone decode; {n_checked}/128 tokens with a "
+        f"top-2 gap > 1e-3 all equal; smallest gap {min_gap:.3g}")
+    check(worst <= 1e-4, f"serving logits {worst} from standalone (> 1e-4)")
+    summary.update(serving_logits_max_abs_diff=worst,
+                   serving_min_top2_gap=min_gap,
+                   serving_tokens_checked=n_checked,
+                   serving_s=serve_s, decode_tokens_per_s=128 / serve_s,
+                   decode_tokens_fed_per_s=fed_total / serve_s,
+                   k4_launches_serving=n_serve,
+                   wall_s=time.perf_counter() - t_phase)
+    print(json.dumps({"slice_transformer": summary}), flush=True)
+    return summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -518,6 +878,8 @@ def main():
     from repro_torch.kernels.fused_sgd import ops, ref
     from repro_torch.kernels.quant import ops as qops
     from repro_torch.kernels.quant import ref as qref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     card = card_line()
@@ -525,7 +887,8 @@ def main():
     # ---- phase 1: build (one nvcc per source, together) + K1 vs plain ------
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        libs = list(pool.map(build.build, ("fused_sgd", "quant")))
+        libs = list(pool.map(build.build,
+                             ("fused_sgd", "quant", "flash_attention")))
     log(f"built {[os.path.relpath(lib, ROOT) for lib in libs]} in "
         f"{time.perf_counter() - t0:.1f}s; nvcc says:")
     for lib in libs:
@@ -547,6 +910,9 @@ def main():
     shapes = boundary_shapes(probe, probe_batches[0], torch)
     quant_err = quant_phase(shapes, torch, qops, qref)
 
+    # ---- phase A: K4 vs plain at the slice's shapes ------------------------
+    flash_errs = flash_phase(torch, fops, fref)
+
     # ---- phase 2: the port on the card against the CPU --------------------
     cross_device_checks(torch)
 
@@ -560,6 +926,10 @@ def main():
 
     # ---- phase F: the main path on the exact and int8-fused wire ------------
     f_runs, fused = fused_phase(torch, counters, probe, probe_batches[0])
+
+    # ---- phase T: the dense transformer serving path -----------------------
+    t_run = transformer_phase(torch, fops)
+    torch.cuda.empty_cache()
 
     # ---- phase 4: K1 at the run's slice sizes, then timings -----------------
     sizes = sorted({s for r in (res, *f_runs)
@@ -595,6 +965,24 @@ def main():
             "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": None,
             "library_note": no_library, "per_shape": list(times)})
+    k4_times = [flash_timings(sh, torch, fops, fref)
+                for sh in flash_shapes()[0]]
+    by_run = {"prefill_f32": t_run["k4_launches_per_prefill"],
+              "prefill_bf16": t_run["k4_launches_per_prefill"],
+              "chunked_prefill": t_run["k4_launches_chunked_prefill"],
+              "decode": t_run["k4_launches_decode"],
+              "serving": t_run["k4_launches_serving"]}
+    top = k4_times[0]                    # B=4, S=2048, causal, bf16
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
+        "launches": sum(by_run.values()), "launches_by_run": by_run,
+        "max_abs_err": max(flash_errs.values()),
+        "max_abs_err_by_dtype": flash_errs, "limits": FLASH_TOL,
+        **{k: top[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")},
+        "per_shape": k4_times})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,19 @@
+"""granite-3-8b [dense] — GQA. [hf:ibm-granite/granite-3.0-2b-base]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-8b",
+    family="dense",
+    source="hf:ibm-granite/granite-3.0-2b-base",
+    num_layers=40,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=12_800,
+    vocab_size=49_155,
+    rope_theta=10_000_000.0,
+    act="silu",
+    pipeline_stages=8,
+    tensor_parallel=2,
+)

@@ -1,0 +1,19 @@
+"""llama3-8b [dense] — GQA, 128k vocab. [arXiv:2407.21783]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3-8b",
+    family="dense",
+    source="arXiv:2407.21783",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=14_336,
+    vocab_size=128_256,
+    rope_theta=500_000.0,
+    act="silu",
+    pipeline_stages=8,
+    tensor_parallel=2,
+)

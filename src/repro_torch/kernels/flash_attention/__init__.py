@@ -1,0 +1,3 @@
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_kernel)
+from repro_torch.kernels.flash_attention.ref import attention_reference

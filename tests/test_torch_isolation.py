@@ -88,6 +88,24 @@ def test_entry_points_raise_without_cuda_unless_told_cpu():
         live.run_live_training(chain, batches, live.LiveConfig(device="cuda"))
 
 
+def test_transformer_entry_points_raise_without_cuda_unless_told_cpu():
+    _no_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serving import ServingEngine
+    cfg = get_config("qwen2-1.5b").reduced(num_layers=2, vocab_size=128)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_caches(cfg, batch=1, cache_len=8)
+    params = model.init_params(0, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, params)
+    eng = ServingEngine(cfg, params, max_slots=1, cache_len=8, device="cpu")
+    eng.submit([1, 2], max_new_tokens=2)
+    assert len(eng.run_until_drained()[1]) == 2
+
+
 def test_fused_sgd_raises_instead_of_falling_back():
     n0 = ops.fused_sgd.launches
     p, g, m = (torch.zeros(8, device="meta") for _ in range(3))
