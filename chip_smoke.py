@@ -36,10 +36,20 @@ Phases, each fatal on failure (exit code 1, no result line):
   A. hold flash attention (K4) against its plain version on the card at
      qwen2-1.5b's heads (H=12, Hkv=2, dh=128), B=4: S=2048 causal,
      S=1000 ragged causal, S=2048 with a 256 window, S=1000 non-causal,
-     a 512-row chunk at q_offset 1536 over 2048 keys, each in f32, bf16
-     and bf16 q over f32 k/v; and dh=32, 64 at small sizes. Limits are
-     the JAX package's own, 5e-5 max abs in f32 and 2e-2 in bf16, and in
+     a 512-row chunk at q_offset 1536 over 2048 keys, and at zamba2-7b's
+     heads (H=Hkv=32, dh=112) B=4, S=2048 causal, each in f32, bf16 and
+     bf16 q over f32 k/v; and dh=32, 64 at small sizes. Limits are the
+     JAX package's own, 5e-5 max abs in f32 and 2e-2 in bf16, and in
      bf16 also 1e-2 relative L2 over the whole output;
+  S. hold the SSD scan (K5) against its plain version on the card at
+     zamba2-7b's H=112, P=64, N=64: B=4 and B=1 at S=2048, a ragged
+     S=1000, a 512-step chunk continuing from a carried state (y and
+     ``h_final``), and bf16 xh at S=2048, each with the JAX test's draw
+     and with zamba2's decay and step ranges: f32 within 1e-4 max abs
+     (tests/test_kernels.py:73); bf16 within 1e-2 relative L2, and each
+     output its f32 plain value correctly rounded (the 5e-2 of the JAX
+     test below |y| = 16, see ``ssd_phase``); plus the model's own dt
+     draw, whose y reaches ~10^2, within 1e-5 relative L2;
   T. the dense transformer serving path at the full width of qwen2-1.5b
      (28 layers, d=1536, GQA 12:2, dh=128, vocab 151,936; random weights
      from seed 0, prompts from ``SyntheticLM``): (i) prefill through
@@ -54,6 +64,19 @@ Phases, each fatal on failure (exit code 1, no result line):
      within 1e-4 of a standalone decode of the same tokens, and its
      tokens the standalone's wherever the top-2 logit gap exceeds 1e-3;
      prefill and decode tokens/s printed;
+  Z. the hybrid Mamba2 serving path at the full width of zamba2-7b (81
+     layers in 16 stages of a hybrid and 5 mamba slots, d=3584, 32 heads
+     of dh=112, d_ff 14,336, vocab 32,000, state 64; 11.0 B parameters,
+     random from seed 0; prompts from ``SyntheticLM``): (i) prefill at
+     B=4, S=2048 with K4 and K5 against the plain attention and the plain
+     scan (swapped in here by ``plain_ssd_scan``), f32 <= 1e-3 max abs
+     logit difference, bf16 relative L2 <= 2e-2, 16 K4 and 96 K5
+     launches a forward; (ii) 4 chunks of 512 through every slot's
+     ``prefill_chunk`` (64 K4, 384 K5 launches), then 8 decode steps (no
+     kernel), each within 1e-3 of a kernel forward; (iii) B=1, 32 tokens:
+     the kernel prefill against 32 decode steps from an empty cache,
+     within 1e-3; (iv) ``ServingEngine`` (4 slots, cache 64) answers 6
+     greedy requests of 8 new tokens, held as in T (iii), no kernel;
   4. K1 again at every stage-slice size the run used, then each kernel's
      time beside its bound, its plain version's and, where one PyTorch
      call computes the same function, that call's (K1:
@@ -61,7 +84,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      ``F.scaled_dot_product_attention``, given the window's and the
      query offset's boolean mask where it has them, and held against the
      plain version first; yardsticks the port never calls; no single
-     PyTorch call computes K2 or K3).
+     PyTorch call computes K2, K3 or K5).
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit (``nvidia-smi``), and
@@ -69,6 +92,7 @@ card's name and power limit (``nvidia-smi``), and
 non-zero without them, or when ``src/repro_torch`` is not beside it.
 """
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -87,6 +111,13 @@ FLASH_TOL = {"float32": 5e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:31
 # bf16 over the whole output as well: at S=2048 a causal row's values are
 # ~0.03-0.05, so 2e-2 max abs alone would let a fault in long rows pass
 FLASH_BF16_REL_L2 = 1e-2
+# K5: tests/test_kernels.py:73 (1e-4 f32, 5e-2 bf16, which phase S holds
+# as "correctly rounded", see ssd_phase), and phase A's bf16 relative L2
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+SSD_BF16_REL_L2 = 1e-2
+# the "model" draw of phase S (y up to ~10^2): relative L2 only
+SSD_MODEL_REL_L2 = 1e-5
+ZAMBA2_PARAMETERS = 11_003_722_752     # jax.eval_shape of the JAX init
 PREFILL_B, PREFILL_S, CHUNK, DECODE_STEPS = 4, 2048, 512, 8
 LR, MOMENTUM, WEIGHT_DECAY = 0.005, 0.9, 4e-5
 NUM_BATCHES, KILL = 30, (1, 12)
@@ -542,13 +573,15 @@ def fused_phase(torch, counters, probe, probe_batch):
 
 def flash_shapes():
     """(B, H, Hkv, Sq, Skv, dh, causal, window, q_offset) of phase A: the
-    slice's shapes at qwen2-1.5b's heads, then the smaller head dims."""
+    dense slice's shapes at qwen2-1.5b's heads and the hybrid slice's at
+    zamba2-7b's (H = Hkv = 32, dh = 112), then the smaller head dims."""
     H, Hkv, dh = 12, 2, 128
     big = [(4, H, Hkv, 2048, 2048, dh, True, 0, 0),
            (4, H, Hkv, 1000, 1000, dh, True, 0, 0),
            (4, H, Hkv, 2048, 2048, dh, True, 256, 0),
            (4, H, Hkv, 1000, 1000, dh, False, 0, 0),
-           (4, H, Hkv, 512, 2048, dh, True, 0, 1536)]
+           (4, H, Hkv, 512, 2048, dh, True, 0, 1536),
+           (4, 32, 32, 2048, 2048, 112, True, 0, 0)]   # zamba2-7b's
     small = [(2, 4, 2, 200, 200, d, True, 64, 0) for d in (32, 64)]
     small += [(2, 4, 2, 130, 130, d, False, 0, 0) for d in (32, 64)]
     return big, small
@@ -701,6 +734,80 @@ def prefill_chunks(params, cfg, tokens, caches, chunk):
     return M.head(params, cfg, x)[:, -1]
 
 
+def serve_and_check(params, cfg, prompts, new_tokens, cache_len,
+                    counters, torch):
+    """``ServingEngine`` with 4 slots answers ``prompts`` greedily, f32.
+    Each engine step's logits row of a request is held within 1e-4 of a
+    standalone ``sequential_decode_step`` (batch 1) fed the same tokens,
+    and the engine's token must be the standalone's argmax wherever the
+    top-2 logit gap exceeds 1e-3 (below that, rounding may flip a
+    near-tie). The launch counts in ``counters`` are set to 0 just before
+    the engine runs and read just after. Returns the figures."""
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServingEngine
+
+    class Recording(ServingEngine):
+        """Keeps each request's logits row of every engine step."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.rows = {}
+
+        def _decode_step(self, params_, caches_, tokens_, pos_):
+            logits, new = super()._decode_step(params_, caches_, tokens_,
+                                               pos_)
+            for i, r in enumerate(self._slots):
+                if r is not None:
+                    self.rows.setdefault(r.uid, []).append(logits[i].clone())
+            return logits, new
+
+    eng = Recording(cfg, params, max_slots=4, cache_len=cache_len,
+                    device="cuda")
+    uids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run_until_drained()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(all(len(out[u]) == new_tokens for u in uids),
+          "a request was cut short")
+    worst, min_gap, n_checked = 0.0, float("inf"), 0
+    with torch.no_grad():
+        for p, u in zip(prompts, uids):
+            caches = M.init_caches(cfg, batch=1, cache_len=cache_len,
+                                   dtype=torch.float32, device="cuda")
+            fed = p + out[u][:-1]
+            rows = eng.rows[u]
+            check(len(rows) == len(fed), f"request {u}: {len(rows)} steps "
+                  f"for {len(fed)} tokens")
+            for pos, tok in enumerate(fed):
+                lg, caches = M.sequential_decode_step(params, cfg, [[tok]],
+                                                      caches, pos)
+                row = lg[0, 0]
+                worst = max(worst, (row - rows[pos]).abs().max().item())
+                k = pos - (len(p) - 1)
+                if k >= 0:
+                    top2 = torch.topk(row, 2).values
+                    gap = (top2[0] - top2[1]).item()
+                    min_gap = min(min_gap, gap)
+                    if gap > 1e-3:
+                        n_checked += 1
+                        check(int(row.argmax()) == out[u][k],
+                              f"request {u} token {k}: engine "
+                              f"{out[u][k]}, standalone "
+                              f"{int(row.argmax())} (gap {gap:.3g})")
+    check(worst <= 1e-4, f"serving logits {worst} from standalone (> 1e-4)")
+    generated = new_tokens * len(prompts)
+    fed_total = sum(len(p) + new_tokens - 1 for p in prompts)
+    return {"s": serve_s, "generated_per_s": generated / serve_s,
+            "fed_per_s": fed_total / serve_s, "worst": worst,
+            "min_gap": min_gap, "checked": n_checked,
+            "launches": launches}
+
+
 def transformer_phase(torch, fops):
     """Phase T: prefill, chunked prefill + decode, and serving, at the
     full width of qwen2-1.5b on the card. Returns its summary."""
@@ -709,7 +816,6 @@ def transformer_phase(torch, fops):
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models import model as M
-    from repro_torch.serving import ServingEngine
     K = fops.flash_attention_kernel
     t_phase = time.perf_counter()
     cfg = get_config("qwen2-1.5b").with_overrides(tensor_parallel=1,
@@ -818,76 +924,457 @@ def transformer_phase(torch, fops):
         del caches, ref, steps, last
 
     # ---- (iii) serving: continuous batching against standalone decode ---
-    class Recording(ServingEngine):
-        """Keeps each request's logits row of every engine step."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.rows = {}
-
-        def _decode_step(self, params_, caches_, tokens_, pos_):
-            logits, new = super()._decode_step(params_, caches_, tokens_,
-                                               pos_)
-            for i, r in enumerate(self._slots):
-                if r is not None:
-                    self.rows.setdefault(r.uid, []).append(logits[i].clone())
-            return logits, new
-
     rng = np.random.default_rng(1)
     prompts = [lm.sample(rng, 1, int(n))[0][0].tolist()
                for n in rng.integers(8, 65, 8)]
-    eng = Recording(cfg32, params, max_slots=4, cache_len=128, device="cuda")
-    uids = [eng.submit(p, max_new_tokens=16) for p in prompts]
-    K.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = eng.run_until_drained()
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    n_serve = K.launches
-    check(n_serve == 0, f"serving launched K4 {n_serve} times")
-    check(all(len(out[u]) == 16 for u in uids), "a request was cut short")
-    worst, min_gap, n_checked = 0.0, float("inf"), 0
-    with torch.no_grad():
-        for p, u in zip(prompts, uids):
-            caches = M.init_caches(cfg32, batch=1, cache_len=128,
-                                   dtype=torch.float32, device="cuda")
-            fed = p + out[u][:-1]
-            rows = eng.rows[u]
-            check(len(rows) == len(fed), f"request {u}: {len(rows)} steps "
-                  f"for {len(fed)} tokens")
-            for pos, tok in enumerate(fed):
-                lg, caches = M.sequential_decode_step(params, cfg32, [[tok]],
-                                                      caches, pos)
-                row = lg[0, 0]
-                worst = max(worst, (row - rows[pos]).abs().max().item())
-                k = pos - (len(p) - 1)
-                if k >= 0:
-                    top2 = torch.topk(row, 2).values
-                    gap = (top2[0] - top2[1]).item()
-                    min_gap = min(min_gap, gap)
-                    if gap > 1e-3:
-                        n_checked += 1
-                        check(int(row.argmax()) == out[u][k],
-                              f"request {u} token {k}: engine "
-                              f"{out[u][k]}, standalone "
-                              f"{int(row.argmax())} (gap {gap:.3g})")
-    fed_total = sum(len(p) + 15 for p in prompts)
+    sv = serve_and_check(params, cfg32, prompts, 16, 128, {"K4": K}, torch)
+    check(sv["launches"]["K4"] == 0,
+          f"serving launched K4 {sv['launches']['K4']} times")
     log(f"(iii) ServingEngine: 8 requests (prompts "
         f"{[len(p) for p in prompts]}), 16 new tokens each, in "
-        f"{serve_s:.2f}s: {128 / serve_s:.1f} generated tokens/s, "
-        f"{fed_total / serve_s:.1f} tokens fed/s; logits within "
-        f"{worst:.3g} of standalone decode; {n_checked}/128 tokens with a "
-        f"top-2 gap > 1e-3 all equal; smallest gap {min_gap:.3g}")
-    check(worst <= 1e-4, f"serving logits {worst} from standalone (> 1e-4)")
-    summary.update(serving_logits_max_abs_diff=worst,
-                   serving_min_top2_gap=min_gap,
-                   serving_tokens_checked=n_checked,
-                   serving_s=serve_s, decode_tokens_per_s=128 / serve_s,
-                   decode_tokens_fed_per_s=fed_total / serve_s,
-                   k4_launches_serving=n_serve,
+        f"{sv['s']:.2f}s: {sv['generated_per_s']:.1f} generated tokens/s, "
+        f"{sv['fed_per_s']:.1f} tokens fed/s; logits within "
+        f"{sv['worst']:.3g} of standalone decode; {sv['checked']}/128 "
+        f"tokens with a top-2 gap > 1e-3 all equal; smallest gap "
+        f"{sv['min_gap']:.3g}")
+    summary.update(serving_logits_max_abs_diff=sv["worst"],
+                   serving_min_top2_gap=sv["min_gap"],
+                   serving_tokens_checked=sv["checked"],
+                   serving_s=sv["s"],
+                   decode_tokens_per_s=sv["generated_per_s"],
+                   decode_tokens_fed_per_s=sv["fed_per_s"],
+                   k4_launches_serving=sv["launches"]["K4"],
                    wall_s=time.perf_counter() - t_phase)
     print(json.dumps({"slice_transformer": summary}), flush=True)
+    return summary
+
+
+# ---------------------------- SSD scan (K5) ------------------------------
+
+# (B, S, x dtype, with h0) of phase S, all at zamba2-7b's H=112, P=64,
+# N=64: the prefill shapes, a ragged S, a 512-step chunk continuing from a
+# carried state, and bf16 xh
+SSD_SHAPES = [(4, 2048, "float32", False), (1, 2048, "float32", False),
+              (4, 1000, "float32", False), (4, 512, "float32", True),
+              (4, 2048, "bfloat16", False)]
+SSD_H, SSD_P, SSD_N = 112, 64, 64
+
+
+def ssd_inputs(B, S, draw, xdtype, seed, torch):
+    """xh, dt, A, Bm, Cm, D for K5 from a seed. ``draw`` "jax" is
+    tests/test_kernels.py:65-71's (dt = softplus(n)*0.1, A = -exp(0.3n));
+    "zamba2" is zamba2-7b's ranges: A = -linspace(1, 16, H) (its A_log
+    init) and dt in its dt_bias range, log-uniform in [0.001, 0.1]
+    (``init_mamba2``), so a chunk's cumulative decay reaches -200;
+    "model" is what the mixer hands K5 at random weights, dt =
+    softplus(n + dt_bias), under which y reaches ~10^2."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    H = SSD_H
+    xh = n(B, S, H, SSD_P).to(getattr(torch, xdtype))
+    Bm, Cm = n(B, S, SSD_N), n(B, S, SSD_N)
+    if draw == "jax":
+        dt = F.softplus(n(B, S, H)) * 0.1
+        A = -torch.exp(0.3 * n(H))
+    else:
+        A = -torch.linspace(1.0, 16.0, H, device="cuda")
+        lo, hi = math.log(0.001), math.log(0.1)
+        if draw == "zamba2":
+            u = torch.rand(B, S, H, generator=gen, device="cuda")
+            dt = torch.exp(u * (hi - lo) + lo)
+        else:
+            u = torch.rand(H, generator=gen, device="cuda")
+            dt_bias = torch.log(torch.expm1(torch.exp(u * (hi - lo) + lo)))
+            dt = F.softplus(n(B, S, H) + dt_bias)
+    return xh, dt, A, Bm, Cm, torch.ones(H, device="cuda")
+
+
+def ssd_work(B, S, xdtype, with_h0):
+    """(flop, bytes) one K5 call needs. For each (b, h) and chunk of L real
+    steps: the triangular M.x, L(L+1)/2 pairs x P multiply-adds; C.h^T and
+    the state injection, L*N*P each; C.B^T once per (b, chunk), L(L+1)/2
+    pairs x N. Bytes: xh read and y written in xh's type, dt, Bm, Cm, A, D
+    in f32, h0 and h_final when carried."""
+    H, P, N, Q = SSD_H, SSD_P, SSD_N, 128
+    Ls = [min(Q, S - c) for c in range(0, S, Q)]
+    pairs = sum(L * (L + 1) // 2 for L in Ls)
+    flop = 2 * (B * H * (pairs * P + 2 * S * N * P) + B * pairs * N)
+    xb = 2 if xdtype == "bfloat16" else 4
+    nbytes = (2 * xb * B * S * H * P + 4 * B * S * (H + 2 * N) + 8 * H
+              + (2 * 4 * B * H * P * N if with_h0 else 0))
+    return flop, nbytes
+
+
+def ssd_phase(torch, sops, sref):
+    """Phase S. Returns the max |kernel - plain| and the largest relative
+    L2 error, each by xh's dtype, over the "jax" and "zamba2" draws, and
+    the "model" draw's figures. Its y reaches ~10^2, where f32 rounding in
+    any order is of the order of 1e-4, so that draw is held by relative
+    L2 (SSD_MODEL_REL_L2) and its max abs error is reported."""
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    rels = dict(errs)
+    cases = [(i, shape, draw) for i, shape in enumerate(SSD_SHAPES)
+             for draw in ("jax", "zamba2")]
+    cases.append((len(SSD_SHAPES), SSD_SHAPES[0], "model"))
+    model = {}
+    for i, (B, S, xdtype, with_h0), draw in cases:
+        what = f"B={B} S={S} xh {xdtype} h0={with_h0} draw {draw}"
+        ins = ssd_inputs(B, 2 * S if with_h0 else S, draw, xdtype,
+                         100 + i, torch)
+        if with_h0:
+            # the state a previous chunk leaves, from the kernel, and
+            # the kernel's and the plain version's of the next chunk
+            first = [t[:, :S] if t.dim() > 1 else t for t in ins]
+            _, h0 = sops.ssd_scan_kernel(*first, return_state=True)
+            _, h0_plain = sref.ssd_scan_reference(*first,
+                                                  return_state=True)
+            ins = [t[:, S:] if t.dim() > 1 else t for t in ins]
+            got, h_got = sops.ssd_scan_kernel(*ins, h0=h0)
+            want, h_want = sref.ssd_scan_reference(*ins, h0=h0)
+        else:
+            got = sops.ssd_scan_kernel(*ins)
+            want = sref.ssd_scan_reference(*ins)
+        excess = None
+        if xdtype == "bfloat16":
+            # y reaches ~30 here, where bf16's spacing is 0.125: rounding
+            # alone moves an output up to 0.0625 from its f32 value, and
+            # two f32 sums a few ulp apart round to neighbours wherever
+            # they straddle a midpoint. So each bf16 output is held to be
+            # the plain version's f32 result on the same values (xh.float()
+            # is exact) correctly rounded: within half a bf16 spacing plus
+            # the f32 limit. Below |y| = 16 that bound is under 5e-2.
+            rounded = abs_err(got, want)
+            want = sref.ssd_scan_reference(ins[0].float(), *ins[1:])
+            half = torch.ldexp(torch.ones_like(want),
+                               torch.frexp(want).exponent - 9)
+            excess = ((got.float() - want).abs() - half
+                      - SSD_TOL["float32"]).max().item()
+        torch.cuda.synchronize()
+        check(got.dtype == ins[0].dtype and got.shape == want.shape
+              and bool(torch.isfinite(got).all()),
+              f"ssd_scan output at {what}")
+        err = abs_err(got, want)
+        rel = ((got.double() - want.double()).norm()
+               / want.double().norm()).item()
+        if with_h0:
+            err = max(err, abs_err(h0, h0_plain),
+                      abs_err(h_got, h_want))
+        if draw == "model":
+            model = {"max_abs_err": err, "rel_l2": rel,
+                     "max_abs_y": want.abs().max().item()}
+            log(f"  K5 {what}: max abs err {err:.3g} at max |y| "
+                f"{model['max_abs_y']:.3g}, rel L2 {rel:.3g} (limit "
+                f"{SSD_MODEL_REL_L2})")
+            check(rel <= SSD_MODEL_REL_L2, f"ssd_scan's output is {rel} "
+                  f"from its plain version in rel L2 at {what}")
+            continue
+        if excess is not None:
+            log(f"  K5 {what}: max abs err {err:.3g} from the f32 plain "
+                f"result at max |y| {want.abs().max().item():.3g} (bf16 "
+                f"vs bf16 {rounded:.3g}); largest excess over half a bf16 "
+                f"spacing + {SSD_TOL['float32']}: {excess:.3g} (limit 0); "
+                f"rel L2 {rel:.3g}")
+            check(excess <= 0, f"ssd_scan's bf16 output is not its f32 "
+                  f"value rounded, by {excess}, at {what}")
+        else:
+            log(f"  K5 {what}: max abs err {err:.3g} (limit "
+                f"{SSD_TOL[xdtype]}), rel L2 {rel:.3g}, max |y| "
+                f"{want.abs().max().item():.3g}")
+            check(err <= SSD_TOL[xdtype], f"ssd_scan differs from its "
+                  f"plain version by {err} at {what}")
+        check(xdtype == "float32" or rel <= SSD_BF16_REL_L2,
+              f"ssd_scan's bf16 output is {rel} from its plain version "
+              f"in rel L2 (> {SSD_BF16_REL_L2}) at {what}")
+        errs[xdtype] = max(errs[xdtype], err)
+        rels[xdtype] = max(rels[xdtype], rel)
+        del ins, got, want
+    log(f"ssd_scan within the limits over {len(cases)} cases; largest "
+        f"rel L2 {rels}")
+    return errs, rels, model
+
+
+def ssd_timings(shape, torch, sops, sref):
+    """K5 at one phase-S shape, zamba2's draw: device time beside its
+    bound and the plain version's. No single PyTorch call computes the
+    SSD scan, so there is no library time."""
+    B, S, xdtype, with_h0 = shape
+    ins = ssd_inputs(B, S, "zamba2", xdtype, 7, torch)
+    h0 = (torch.zeros(B, SSD_H, SSD_P, SSD_N, device="cuda")
+          if with_h0 else None)
+    flop, nbytes = ssd_work(B, S, xdtype, with_h0)
+    t_ops, t_bytes = flop / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"B": B, "S": S, "H": SSD_H, "P": SSD_P, "N": SSD_N,
+            "xh_dtype": xdtype, "h0": with_h0, "gflop": flop / 1e9,
+            "mbytes": nbytes / 1e6,
+            "ms": time_ms(lambda: sops.ssd_scan_kernel(*ins, h0=h0), torch),
+            "plain_ms": time_ms(lambda: sref.ssd_scan_reference(
+                *ins, h0=h0), torch),
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+@contextlib.contextmanager
+def plain_ssd_scan():
+    """The Mamba2 mixers' scan swapped for K5's plain version, here in the
+    smoke: the package reads no switch for it."""
+    from repro_torch.kernels.ssm_scan import ref
+    from repro_torch.models import mamba2
+    kernel = mamba2.ssd_scan
+    mamba2.ssd_scan = ref.ssd_scan_reference
+    try:
+        yield
+    finally:
+        mamba2.ssd_scan = kernel
+
+
+def bf16_slot_updates(params, cfg, tokens):
+    """The bf16 forward slot by slot: each slot's update (output - input)
+    with K4 and K5 against the plain slot's (``use_flash_attention=0`` and
+    the plain scan) on the same input, the kernel slot's output feeding
+    the next. Returns the largest relative L2 difference over the active
+    slots. Launches here are comparisons, not counted."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import BLOCKS, BlockCtx
+    dtype = torch.bfloat16
+    x, positions, _ = M.embed(params, cfg, tokens, dtype=dtype)
+    pm = M.pad_mask(cfg, device=x.device)
+    plain_cfg = cfg.with_overrides(use_flash_attention=0)
+    worst = 0.0
+    for s in range(cfg.pipeline_stages):
+        for j, t in enumerate(cfg.slot_layout):
+            p = M._slot_params(params["blocks"][j], s)
+            ctx = BlockCtx(cfg=cfg, positions=positions, dtype=dtype,
+                           active=pm[s, j])
+            y, _ = BLOCKS[t].apply(p, x, ctx)
+            if pm[s, j] > 0:
+                with plain_ssd_scan():
+                    yp, _ = BLOCKS[t].apply(p, x, BlockCtx(
+                        cfg=plain_cfg, positions=positions, dtype=dtype,
+                        active=pm[s, j]))
+                du, dp = y.float() - x.float(), yp.float() - x.float()
+                worst = max(worst, ((du - dp).norm() / dp.norm()).item())
+            x = y
+    return worst
+
+
+# ------------------------ the hybrid Mamba2 slice (Z) ---------------------
+
+def hybrid_phase(torch, fops, sops):
+    """Phase Z: prefill, chunked prefill + decode, a check by decode, and
+    serving, at the full width of zamba2-7b on the card. Returns its
+    summary."""
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import model as M
+    K4, K5 = fops.flash_attention_kernel, sops.ssd_scan_kernel
+    counters = {"K4": K4, "K5": K5}
+    t_phase = time.perf_counter()
+    cfg = get_config("zamba2-7b").with_overrides(use_flash_attention=1)
+    check(cfg.num_layers == 81 and cfg.d_model == 3584
+          and cfg.num_heads == cfg.num_kv_heads == 32 and cfg.head_dim == 112
+          and cfg.d_ff == 14_336 and cfg.vocab_size == 32_000
+          and cfg.ssm_state == 64 and cfg.pipeline_stages == 16
+          and cfg.slot_layout == ("hybrid",) + ("mamba",) * 5
+          and cfg.tensor_parallel == 1,
+          f"zamba2-7b at its published widths: {cfg}")
+    cfg32 = cfg.with_overrides(dtype="float32")
+    n_slots = cfg.pipeline_stages * cfg.layers_per_stage
+    n_hybrid = cfg.pipeline_stages
+
+    params = M.init_params(0, cfg, device="cuda")
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    check(n_params == ZAMBA2_PARAMETERS, f"{n_params:,} parameters, not "
+          f"{ZAMBA2_PARAMETERS:,}")
+    lm = SyntheticLM(vocab_size=cfg.vocab_size, seed=0)
+    toks, _ = lm.sample(np.random.default_rng(0), PREFILL_B,
+                        PREFILL_S + DECODE_STEPS)
+    tokens = torch.as_tensor(toks, device="cuda")
+    prompt = tokens[:, :PREFILL_S]
+    log(f"{cfg.name}: {n_params:,} parameters (f32), {n_slots} slots "
+        f"({n_hybrid} hybrid), assignment {M.default_assignment(cfg)}; "
+        f"prompts [{PREFILL_B}, {PREFILL_S}] from SyntheticLM")
+    summary = {"config": f"{cfg.name} use_flash_attention=1",
+               "parameters": n_params}
+
+    def counted(fn):
+        """fn()'s result and the K4, K5 launches it made (the counts are
+        set to 0 just before, read just after)."""
+        K4.launches = K5.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, K4.launches, K5.launches
+
+    def forward(c, toks_):
+        return counted(lambda: M.sequential_lm_forward(params, c, toks_)[0])
+
+    def plain_forward(c, toks_):
+        with plain_ssd_scan():
+            return forward(c.with_overrides(use_flash_attention=0), toks_)
+
+    with torch.no_grad():
+        # ---- (i) prefill: K4 and K5 against their plain versions --------
+        kern, n4, n5 = forward(cfg32, prompt)
+        plain, p4, p5 = plain_forward(cfg32, prompt)
+        check((n4, n5, p4, p5) == (n_hybrid, n_slots, 0, 0),
+              f"f32 prefill: K4, K5 launched {n4}, {n5} times with the "
+              f"kernels, {p4}, {p5} without")
+        err = (kern - plain).abs().max().item()
+        log(f"(i) f32 prefill B={PREFILL_B} S={PREFILL_S}: max |logit "
+            f"kernels - plain| {err:.3g}; K4, K5 launches {n4}, {n5}")
+        check(bool(torch.isfinite(kern).all()), "non-finite f32 logits")
+        check(err <= 1e-3, f"f32 prefill logits differ by {err} (> 1e-3)")
+        kern32 = kern
+        del plain
+        forward(cfg, prompt)                               # warm-up
+        t0 = time.perf_counter()
+        kern, b4, b5 = forward(cfg, prompt)
+        prefill_s = time.perf_counter() - t0
+        plain, p4, p5 = plain_forward(cfg, prompt)
+        check((b4, b5, p4, p5) == (n_hybrid, n_slots, 0, 0),
+              f"bf16 prefill: K4, K5 launched {b4}, {b5} times with the "
+              f"kernels, {p4}, {p5} without")
+
+        def rel_l2(a, b):
+            return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+        rel = rel_l2(kern, plain)
+        top1 = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+        # how far rounding alone moves these logits: the same kernel
+        # forward in f32, and a bf16 forward that swaps only the SSD scan,
+        # whose f32 output is ~1e-6 from K5's (phase S)
+        rel_f32 = rel_l2(kern, kern32)
+        with plain_ssd_scan():
+            k5_only, _, _ = forward(cfg, prompt)
+        rel_k5 = rel_l2(kern, k5_only)
+        del kern32, k5_only
+        slot_rel = bf16_slot_updates(params, cfg, prompt)
+        log(f"(i) bf16 prefill: rel L2 {rel:.3g} from the plain forward, "
+            f"top-1 agreement {top1:.4f}; against the rounding: the f32 "
+            f"forward {rel_f32:.3g} away, the plain scan alone {rel_k5:.3g}; "
+            f"slot by slot, each update within {slot_rel:.3g} (rel L2) of "
+            f"the plain slot's on the same input; "
+            f"{PREFILL_B * PREFILL_S / prefill_s:,.0f} tokens/s "
+            f"({prefill_s * 1e3:.1f} ms)")
+        check(bool(torch.isfinite(kern).all()), "non-finite bf16 logits")
+        # 2e-2 is phase T's whole-forward limit. Here it is held slot by
+        # slot: through 81 layers in bf16 at random weights any rounding
+        # difference grows to ~5% of the logits (rel_k5), so the whole
+        # forward is held to the distance bf16 itself puts it from f32
+        check(slot_rel <= 2e-2, f"a bf16 slot's update is {slot_rel} from "
+              f"the plain slot's (rel L2 > 2e-2)")
+        check(rel <= rel_f32, f"bf16 prefill rel L2 {rel} from the plain "
+              f"forward, above the f32 forward's {rel_f32}")
+        summary.update(prefill_f32_max_abs_diff=err, prefill_bf16_rel_l2=rel,
+                       prefill_bf16_top1_agreement=top1,
+                       prefill_bf16_rel_l2_vs_f32=rel_f32,
+                       prefill_bf16_rel_l2_plain_scan_only=rel_k5,
+                       prefill_bf16_slot_update_max_rel_l2=slot_rel,
+                       prefill_bf16_ms=prefill_s * 1e3,
+                       prefill_tokens_per_s=PREFILL_B * PREFILL_S / prefill_s,
+                       launches_prefill_f32={"K4": n4, "K5": n5},
+                       launches_prefill_bf16={"K4": b4, "K5": b5})
+        del kern, plain
+
+        # ---- (ii) chunked prefill into the caches, then decode ----------
+        caches = M.init_caches(cfg32, batch=PREFILL_B,
+                               cache_len=PREFILL_S + DECODE_STEPS,
+                               dtype=torch.float32, device="cuda")
+        last, c4, c5 = counted(lambda: prefill_chunks(
+            params, cfg32, prompt, caches, CHUNK))
+        steps = []
+
+        def decode():
+            nonlocal caches
+            for t in range(DECODE_STEPS):
+                lg, caches = M.sequential_decode_step(
+                    params, cfg32,
+                    tokens[:, PREFILL_S + t:PREFILL_S + t + 1], caches,
+                    PREFILL_S + t)
+                steps.append(lg[:, 0])
+
+        _, d4, d5 = counted(decode)
+        ref = M.sequential_lm_forward(params, cfg32, tokens)[0][
+            :, PREFILL_S - 1:]
+        err_last = (last - ref[:, 0]).abs().max().item()
+        err_dec = max((lg - ref[:, 1 + t]).abs().max().item()
+                      for t, lg in enumerate(steps))
+        n_chunks = PREFILL_S // CHUNK
+        log(f"(ii) {n_chunks} chunks of {CHUNK}: last logits {err_last:.3g} "
+            f"from a kernel forward, K4, K5 launches {c4}, {c5}; "
+            f"{DECODE_STEPS} decode steps: {err_dec:.3g}, K4, K5 launches "
+            f"{d4}, {d5}")
+        check((c4, c5) == (n_hybrid * n_chunks, n_slots * n_chunks),
+              f"K4, K5 launched {c4}, {c5} times in the chunked prefill")
+        check((d4, d5) == (0, 0), f"decode launched K4, K5 {d4}, {d5} times")
+        check(err_last <= 1e-3 and err_dec <= 1e-3,
+              f"chunked prefill / decode logits off by {err_last}, "
+              f"{err_dec} (> 1e-3)")
+        summary.update(chunked_prefill_max_abs_diff=err_last,
+                       decode_max_abs_diff=err_dec,
+                       launches_chunked_prefill={"K4": c4, "K5": c5},
+                       launches_decode={"K4": d4, "K5": d5})
+        del caches, ref, steps, last
+
+        # ---- (iii) a check by decode: prefill against 32 decode steps ---
+        short = tokens[:1, :32]
+        full, s4, s5 = forward(cfg32, short)
+        caches = M.init_caches(cfg32, batch=1, cache_len=32,
+                               dtype=torch.float32, device="cuda")
+        steps = []
+
+        def decode_short():
+            nonlocal caches
+            for t in range(short.shape[1]):
+                lg, caches = M.sequential_decode_step(
+                    params, cfg32, short[:, t:t + 1], caches, t)
+                steps.append(lg[:, 0])
+
+        _, e4, e5 = counted(decode_short)
+        err_check = max((lg - full[:, t]).abs().max().item()
+                        for t, lg in enumerate(steps))
+        log(f"(iii) B=1, 32 tokens: kernel prefill (K4, K5 launches {s4}, "
+            f"{s5}) against 32 decode steps from an empty cache (K4, K5 "
+            f"launches {e4}, {e5}): max abs {err_check:.3g}")
+        check((s4, s5, e4, e5) == (n_hybrid, n_slots, 0, 0),
+              f"the decode check launched K4, K5 {s4}, {s5} / {e4}, {e5} "
+              f"times")
+        check(err_check <= 1e-3,
+              f"prefill vs decode logits off by {err_check} (> 1e-3)")
+        summary.update(decode_check_max_abs_diff=err_check,
+                       launches_decode_check={"K4": s4 + e4, "K5": s5 + e5})
+        del caches, steps, full
+
+    # ---- (iv) serving: continuous batching against standalone decode ----
+    rng = np.random.default_rng(1)
+    prompts = [lm.sample(rng, 1, int(n))[0][0].tolist()
+               for n in rng.integers(8, 25, 6)]
+    sv = serve_and_check(params, cfg32, prompts, 8, 64, counters, torch)
+    check(sv["launches"] == {"K4": 0, "K5": 0},
+          f"serving launched {sv['launches']}")
+    log(f"(iv) ServingEngine: 6 requests (prompts "
+        f"{[len(p) for p in prompts]}), 8 new tokens each, in "
+        f"{sv['s']:.2f}s: {sv['generated_per_s']:.2f} generated tokens/s, "
+        f"{sv['fed_per_s']:.2f} tokens fed/s; logits within "
+        f"{sv['worst']:.3g} of standalone decode; {sv['checked']}/48 "
+        f"tokens with a top-2 gap > 1e-3 all equal; smallest gap "
+        f"{sv['min_gap']:.3g}")
+    summary.update(serving_logits_max_abs_diff=sv["worst"],
+                   serving_min_top2_gap=sv["min_gap"],
+                   serving_tokens_checked=sv["checked"],
+                   serving_s=sv["s"],
+                   decode_tokens_per_s=sv["generated_per_s"],
+                   decode_tokens_fed_per_s=sv["fed_per_s"],
+                   launches_serving=sv["launches"],
+                   wall_s=time.perf_counter() - t_phase)
+    print(json.dumps({"slice_hybrid": summary}), flush=True)
     return summary
 
 
@@ -904,6 +1391,8 @@ def main():
     from repro_torch.kernels.quant import ref as qref
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     card = card_line()
@@ -912,7 +1401,8 @@ def main():
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
         libs = list(pool.map(build.build,
-                             ("fused_sgd", "quant", "flash_attention")))
+                             ("fused_sgd", "quant", "flash_attention",
+                              "ssd_scan")))
     log(f"built {[os.path.relpath(lib, ROOT) for lib in libs]} in "
         f"{time.perf_counter() - t0:.1f}s; nvcc says:")
     for lib in libs:
@@ -937,6 +1427,9 @@ def main():
     # ---- phase A: K4 vs plain at the slice's shapes ------------------------
     flash_errs, flash_rels = flash_phase(torch, fops, fref)
 
+    # ---- phase S: K5 vs plain at the hybrid slice's shapes -----------------
+    ssd_errs, ssd_rels, ssd_model = ssd_phase(torch, sops, sref)
+
     # ---- phase 2: the port on the card against the CPU --------------------
     cross_device_checks(torch)
 
@@ -953,6 +1446,10 @@ def main():
 
     # ---- phase T: the dense transformer serving path -----------------------
     t_run = transformer_phase(torch, fops)
+    torch.cuda.empty_cache()          # phase T's model is freed
+
+    # ---- phase Z: the hybrid Mamba2 serving path ---------------------------
+    z_run = hybrid_phase(torch, fops, sops)
     torch.cuda.empty_cache()
 
     # ---- phase 4: K1 at the run's slice sizes, then timings -----------------
@@ -991,11 +1488,15 @@ def main():
             "library_note": no_library, "per_shape": list(times)})
     k4_times = [flash_timings(sh, torch, fops, fref)
                 for sh in flash_shapes()[0]]
+    z_runs = ("prefill_f32", "prefill_bf16", "chunked_prefill", "decode",
+              "decode_check", "serving")
     by_run = {"prefill_f32": t_run["k4_launches_prefill_f32"],
               "prefill_bf16": t_run["k4_launches_prefill_bf16"],
               "chunked_prefill": t_run["k4_launches_chunked_prefill"],
               "decode": t_run["k4_launches_decode"],
-              "serving": t_run["k4_launches_serving"]}
+              "serving": t_run["k4_launches_serving"],
+              **{f"zamba2_{r}": z_run[f"launches_{r}"]["K4"]
+                 for r in z_runs}}
     top = k4_times[0]                    # B=4, S=2048, causal, bf16
     kernels.append({
         "name": "flash_attention", "route": "cuda",
@@ -1008,6 +1509,23 @@ def main():
         **{k: top[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                "bound_by")},
         "per_shape": k4_times})
+    k5_times = [ssd_timings(sh, torch, sops, sref) for sh in SSD_SHAPES]
+    k5_by_run = {f"zamba2_{r}": z_run[f"launches_{r}"]["K5"] for r in z_runs}
+    top = k5_times[0]                    # B=4, S=2048, f32
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:61",
+        "launches": sum(k5_by_run.values()), "launches_by_run": k5_by_run,
+        "max_abs_err": max(ssd_errs.values()),
+        "max_abs_err_by_dtype": ssd_errs, "rel_l2_by_dtype": ssd_rels,
+        "limits": {**SSD_TOL, "bfloat16_rel_l2": SSD_BF16_REL_L2,
+                   "model_draw_rel_l2": SSD_MODEL_REL_L2},
+        "model_draw": ssd_model,
+        **{k: top[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")},
+        "library_note": "no single PyTorch call computes the SSD scan",
+        "per_shape": k5_times})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

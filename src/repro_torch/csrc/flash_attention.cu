@@ -13,7 +13,9 @@
 // strides over (b, head, position) and a contiguous last axis; the output
 // is contiguous [B, H, Sq, dh] in q's type. q and k/v are read each in its
 // own type (f32 or bf16) and computed in f32, so bf16 q over an f32 kv
-// cache rounds as the JAX package does. dh is 32, 64 or 128.
+// cache rounds as the JAX package does. dh is 32, 64, 112 (zamba2-7b) or
+// 128: a multiple of 16, since each of a row's 16 lanes owns dh/16 output
+// columns, and of 4, for the float4 loads of the q.k loop.
 //
 // Design. One block of 256 threads per (q tile of 64 rows, head, batch);
 // the sequential kv grid axis of the TPU kernel, which carries acc, m and
@@ -59,12 +61,15 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 
 template <int DH>
 struct Tile {
+  static_assert(DH % 16 == 0, "16 lanes a row, dh/16 columns each");
   static constexpr int QS = DH + 4;   // row strides in floats
   static constexpr int KS = DH + 4;
   static constexpr int VS = DH;
   static constexpr int PS = BK + 4;
   static constexpr size_t bytes =
       sizeof(float) * (BQ * QS + BK * KS + BK * VS + BQ * PS);
+  // 105,472 bytes at dh=112, 117,760 at dh=128: under the 227 KB opt-in
+  static_assert(bytes <= 232448, "above the opt-in shared memory limit");
 };
 
 __device__ __forceinline__ float half_warp_max(float x) {
@@ -294,6 +299,10 @@ extern "C" int flash_attention_launch(
       return dispatch_types<64>(q_bf16, kv_bf16, q, k, v, o, B, H, Hkv, Sq,
                                 Skv, qs, ks, vs, q_offset, causal, window,
                                 scale, st);
+    case 112:
+      return dispatch_types<112>(q_bf16, kv_bf16, q, k, v, o, B, H, Hkv, Sq,
+                                 Skv, qs, ks, vs, q_offset, causal, window,
+                                 scale, st);
     case 128:
       return dispatch_types<128>(q_bf16, kv_bf16, q, k, v, o, B, H, Hkv, Sq,
                                  Skv, qs, ks, vs, q_offset, causal, window,

@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_reference
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)      # 112: zamba2-7b's hybrid attention
 DTYPES = (torch.float32, torch.bfloat16)
 _count_lock = threading.Lock()
 

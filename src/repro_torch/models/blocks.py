@@ -1,7 +1,7 @@
 """Slot blocks: the uniform per-layer interface of the transformer stacks.
 
-The port of ``repro.models.blocks``, for the dense slot. Every slot type
-implements:
+The port of ``repro.models.blocks``, for the dense slot and the hybrid
+family's ``mamba`` and ``hybrid`` slots. Every slot type implements:
     init(generator, cfg, dtype)                 -> params (full, unsharded)
     apply(p, x, ctx)                            -> (y, aux)      full-sequence
     init_cache(cfg, batch, cache_len, dtype)    -> cache
@@ -12,8 +12,8 @@ Pad slots are realized by ``ctx.active``: ``active*y + (1-active)*x``, so a
 padded slot is an exact identity. ``active`` is a Python float (JAX's weak
 type: it keeps the activations' dtype) or a 0-d f32 tensor (a row of
 ``model.pad_mask``), which promotes bf16 activations to f32 as in JAX.
-The other slot types of the JAX package (moe, mamba, hybrid, mlstm,
-slstm, enc, dec) are not ported yet and raise.
+The other slot types of the JAX package (moe, mlstm, slstm, enc, dec) are
+not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import modules
 from repro_torch.models.tp import TP
 
@@ -140,6 +141,118 @@ class Dense:
         return x, {"attn": _blend_cache(ctx.active, nc, cache["attn"])}
 
 
+# ------------------------------ mamba -----------------------------------
+
+class Mamba:
+    @staticmethod
+    def init(gen, cfg, dtype=torch.float32):
+        return {"ln": modules.norm_init(cfg.d_model, dtype=dtype,
+                                        device=gen.device),
+                "mixer": m2.init_mamba2(gen, cfg, dtype)}
+
+    @staticmethod
+    def apply(p, x, ctx: BlockCtx):
+        y = m2.mamba2_mixer(p["mixer"],
+                            modules.rmsnorm(p["ln"], x, ctx.cfg.norm_eps),
+                            cfg=ctx.cfg, dtype=ctx.dtype)
+        return _blend(ctx.active, x + y, x), 0.0
+
+    @staticmethod
+    def init_cache(cfg, batch, cache_len, dtype=torch.bfloat16, device="cpu"):
+        return {"mamba": m2.init_mamba2_cache(cfg, batch, device=device)}
+
+    @staticmethod
+    def step(p, x, cache, ctx: BlockCtx):
+        y, nc = m2.mamba2_step(p["mixer"],
+                               modules.rmsnorm(p["ln"], x, ctx.cfg.norm_eps),
+                               cache["mamba"], cfg=ctx.cfg, dtype=ctx.dtype)
+        return (_blend(ctx.active, x + y, x),
+                {"mamba": _blend_cache(ctx.active, nc, cache["mamba"])})
+
+    @staticmethod
+    def prefill_chunk(p, x, cache, ctx: BlockCtx):
+        y, nc = m2.mamba2_mixer_chunk(
+            p["mixer"], modules.rmsnorm(p["ln"], x, ctx.cfg.norm_eps),
+            cache["mamba"], cfg=ctx.cfg, dtype=ctx.dtype)
+        return (_blend(ctx.active, x + y, x),
+                {"mamba": _blend_cache(ctx.active, nc, cache["mamba"])})
+
+
+# ------------------------------ hybrid ----------------------------------
+
+class Hybrid:
+    """zamba2 shared-attention slot: mamba2 mixer + attention + MLP."""
+
+    @staticmethod
+    def init(gen, cfg, dtype=torch.float32):
+        dev = gen.device
+        return {"mamba": Mamba.init(gen, cfg, dtype),
+                "ln_a": modules.norm_init(cfg.d_model, dtype=dtype,
+                                          device=dev),
+                "attn": attn_lib.init_attention(gen, cfg, dtype),
+                "ln_m": modules.norm_init(cfg.d_model, dtype=dtype,
+                                          device=dev),
+                "mlp": _mlp_init(gen, cfg, dtype)}
+
+    @staticmethod
+    def apply(p, x, ctx: BlockCtx):
+        cfg = ctx.cfg
+        x, _ = Mamba.apply(p["mamba"], x, ctx)
+        a = attn_lib.attention(p["attn"],
+                               modules.rmsnorm(p["ln_a"], x, cfg.norm_eps),
+                               cfg=cfg, positions=ctx.positions,
+                               causal=ctx.causal, window=ctx.window,
+                               tp=ctx.tp, dtype=ctx.dtype)
+        x = _blend(ctx.active, x + ctx.tp.psum(a), x)
+        mlp = _mlp(p["mlp"], modules.rmsnorm(p["ln_m"], x, cfg.norm_eps), cfg,
+                   ctx.dtype)
+        x = _blend(ctx.active, x + ctx.tp.psum(mlp), x)
+        return x, 0.0
+
+    @staticmethod
+    def init_cache(cfg, batch, cache_len, dtype=torch.bfloat16, device="cpu"):
+        return {"mamba": m2.init_mamba2_cache(cfg, batch, device=device),
+                "attn": attn_lib.init_decode_cache(
+                    cfg, batch, cache_len, cfg.num_kv_heads, dtype, device)}
+
+    @staticmethod
+    def step(p, x, cache, ctx: BlockCtx):
+        cfg = ctx.cfg
+        y, ncm = m2.mamba2_step(
+            p["mamba"]["mixer"],
+            modules.rmsnorm(p["mamba"]["ln"], x, cfg.norm_eps),
+            cache["mamba"], cfg=cfg, dtype=ctx.dtype)
+        x = _blend(ctx.active, x + y, x)
+        a, nca = attn_lib.decode_attention(
+            p["attn"], modules.rmsnorm(p["ln_a"], x, cfg.norm_eps),
+            cache["attn"], cfg=cfg, pos=ctx.pos, tp=ctx.tp, dtype=ctx.dtype)
+        x = _blend(ctx.active, x + ctx.tp.psum(a), x)
+        mlp = _mlp(p["mlp"], modules.rmsnorm(p["ln_m"], x, cfg.norm_eps), cfg,
+                   ctx.dtype)
+        x = _blend(ctx.active, x + ctx.tp.psum(mlp), x)
+        return x, {"mamba": _blend_cache(ctx.active, ncm, cache["mamba"]),
+                   "attn": _blend_cache(ctx.active, nca, cache["attn"])}
+
+    @staticmethod
+    def prefill_chunk(p, x, cache, ctx: BlockCtx):
+        cfg = ctx.cfg
+        y, ncm = m2.mamba2_mixer_chunk(
+            p["mamba"]["mixer"],
+            modules.rmsnorm(p["mamba"]["ln"], x, cfg.norm_eps),
+            cache["mamba"], cfg=cfg, dtype=ctx.dtype)
+        x = _blend(ctx.active, x + y, x)
+        a, nca = attn_lib.chunk_attention(
+            p["attn"], modules.rmsnorm(p["ln_a"], x, cfg.norm_eps),
+            cache["attn"], cfg=cfg, start=ctx.pos, tp=ctx.tp, dtype=ctx.dtype,
+            window=ctx.window)
+        x = _blend(ctx.active, x + ctx.tp.psum(a), x)
+        mlp = _mlp(p["mlp"], modules.rmsnorm(p["ln_m"], x, cfg.norm_eps),
+                   cfg, ctx.dtype)
+        x = _blend(ctx.active, x + ctx.tp.psum(mlp), x)
+        return x, {"mamba": _blend_cache(ctx.active, ncm, cache["mamba"]),
+                   "attn": _blend_cache(ctx.active, nca, cache["attn"])}
+
+
 class _NotPorted:
     """A slot type of the JAX package that the port does not have yet."""
 
@@ -149,9 +262,9 @@ class _NotPorted:
     def __getattr__(self, attr):
         raise NotImplementedError(
             f"slot type {self.name!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 11): the port has the dense slot only")
+            f"item 11b): the port has the dense, mamba and hybrid slots")
 
 
-BLOCKS = {"dense": Dense}
-for _name in ("moe", "mamba", "hybrid", "mlstm", "slstm", "enc", "dec"):
+BLOCKS = {"dense": Dense, "mamba": Mamba, "hybrid": Hybrid}
+for _name in ("moe", "mlstm", "slstm", "enc", "dec"):
     BLOCKS[_name] = _NotPorted(_name)

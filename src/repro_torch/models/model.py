@@ -2,13 +2,17 @@
 sequential (non-pipelined) forward and decode step.
 
 The port of ``repro.models.model`` for the dense family (and ``vlm``,
-whose slots are dense), with its parameter layout:
+whose slots are dense) and the hybrid family (zamba2: ``hybrid`` and
+``mamba`` slots), with its parameter layout:
   - Each pipeline stage holds ``layers_per_stage`` slots with a fixed,
     stage-uniform type layout.
   - Block params are stacked over a leading stage axis: leaf [S, ...];
     ``params["blocks"]`` is a list of slot dicts.
   - A partition assignment (per-stage active-layer counts) becomes a
-    {0,1} pad mask of shape [S, Lps].
+    {0,1} pad mask of shape [S, Lps]. Pad slots run and are blended out
+    (``blocks._blend``), as in the JAX package: zamba2-7b's assignment
+    [6, 5, 5, ...] leaves slot 5 of stages 1-15 a pad, whose mixer still
+    runs.
 The sequential forward runs all S x Lps slots in order on one device;
 the pipeline engine that runs them across stages is ROADMAP Queue 1 item
 12.
@@ -25,11 +29,11 @@ from repro_torch.models.blocks import BLOCKS, BlockCtx
 from repro_torch.runtime.devices import resolve_device
 
 
-def _dense_family(cfg: ModelConfig):
+def _check_family(cfg: ModelConfig):
     if cfg.family == "audio":
         raise NotImplementedError(
             "the audio family (Whisper enc/dec slots) is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+            "(ROADMAP Queue 1 item 11b)")
 
 
 # --------------------------- layout helpers -----------------------------
@@ -84,7 +88,7 @@ def init_params(seed_or_generator, cfg: ModelConfig, dtype=torch.float32,
     (pass ``device="cpu"`` to build on the CPU). The draws cannot be the
     JAX package's: to run both on identical weights, use
     ``params_from_numpy``."""
-    _dense_family(cfg)
+    _check_family(cfg)
     if isinstance(seed_or_generator, torch.Generator):
         gen = seed_or_generator
         dev = gen.device if device is None else resolve_device(device)
@@ -167,8 +171,8 @@ def forward_blocks(params_blocks, layout, x, ctx: BlockCtx, mask):
 
 def sequential_lm_forward(params, cfg: ModelConfig, tokens, *, prefix=None,
                           assignment=None, dtype=None, window: int = 0):
-    """Full LM forward (dense/vlm). Returns (logits, aux, mask)."""
-    _dense_family(cfg)
+    """Full LM forward (dense/hybrid/vlm). Returns (logits, aux, mask)."""
+    _check_family(cfg)
     dtype = dtype or modules.dtype_of(cfg.dtype)
     x, positions, mask = embed(params, cfg, tokens, prefix=prefix,
                                dtype=dtype)
@@ -185,7 +189,7 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, layout=None,
                 dtype=torch.bfloat16, device=None):
     """Stacked decode caches: per slot, leaves [S, ...] (stage-stacked).
     ``device`` defaults to CUDA and raises without it."""
-    _dense_family(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     layout = layout or cfg.slot_layout
     S = cfg.pipeline_stages
@@ -202,7 +206,7 @@ def sequential_decode_step(params, cfg: ModelConfig, token, caches, pos, *,
     """One-token decode through all slots. token: [B,1] int; pos: an int
     or a per-sequence [B] int tensor. Returns (logits [B,1,V], new caches);
     the caches passed in are not written."""
-    _dense_family(cfg)
+    _check_family(cfg)
     dtype = dtype or modules.dtype_of(cfg.dtype)
     table = params["embed"]["table"]
     token = torch.as_tensor(token, device=table.device).long()

@@ -73,6 +73,20 @@ def test_flash_attention_matches_jax(B, H, Hkv, S, dh, causal, window,
     assert torch.equal(direct, got)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_112_matches_jax(dtype):
+    """zamba2-7b's attention head dim (the kernel's dh=112 instance), held
+    against the JAX package's flash attention (interpret mode) and its
+    dense reference."""
+    (jq, jk, jv), (q, k, v) = _qkv(1, 4, 4, 160, 160, 112, 112, dtype)
+    got = flash_attention(q, k, v, True, 0)
+    assert got.dtype == q.dtype and tuple(got.shape) == (1, 4, 160, 112)
+    want = jax_flash(jq, jk, jv, True, 0, 128, 128, True)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype])
+    want = jax_reference(jq, jk, jv, causal=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype])
+
+
 @pytest.mark.parametrize("L,start", [(64, 128), (40, 88)])
 def test_q_offset_chunk_matches_jax_kernel(L, start):
     """A chunk of queries at global positions start + [0, L) over the

@@ -44,20 +44,29 @@ def _cfgs(arch, **kw):
     return (jax_config(arch).reduced(**kw), get_config(arch).reduced(**kw))
 
 
+SSM_LEAVES = ("A_log", "dt_bias", "'D'", "conv_b")
+
+
 def _draw(init, seed=0):
     """Numpy weights of the shapes ``init`` (a JAX init taking a key)
-    makes: norm scales near 1, biases near 0, fan-in-scaled matrices."""
+    makes: norm scales near 1, biases near 0, fan-in-scaled matrices; a
+    Mamba2 mixer's SSM leaves keep the JAX init's own values (its decays
+    and step sizes; random ones leave the ranges the model runs in)."""
     rng = np.random.default_rng(seed)
+    own = init(KEY)
 
-    def one(path, s):
+    def one(path, s, v):
         name = jax.tree_util.keystr(path)
+        if any(k in name for k in SSM_LEAVES):
+            return np.asarray(v)
         if "scale" in name:
             return (1.0 + 0.1 * rng.standard_normal(s.shape)).astype(np.float32)
         scale = 0.1 if len(s.shape) == 1 or "'b'" in name else \
             s.shape[-2] ** -0.5
         return (scale * rng.standard_normal(s.shape)).astype(np.float32)
 
-    return jax.tree_util.tree_map_with_path(one, jax.eval_shape(init, KEY))
+    return jax.tree_util.tree_map_with_path(one, jax.eval_shape(init, KEY),
+                                            own)
 
 
 def _both(np_tree):
@@ -119,9 +128,12 @@ def test_init_params_is_deterministic_in_the_seed_and_has_the_layout():
 def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="item 12"):
         TP("tensor", 2)
-    for name in ("moe", "mamba", "hybrid", "mlstm", "slstm", "enc", "dec"):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    for name in ("moe", "mlstm", "slstm", "enc", "dec"):
+        with pytest.raises(NotImplementedError, match="item 11b"):
             blocks.BLOCKS[name].init
+    for arch in ("olmoe-1b-7b", "xlstm-125m"):
+        with pytest.raises(NotImplementedError, match="item 11b"):
+            M.init_params(0, get_config(arch).reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         M.init_params(0, get_config("whisper-base").reduced(), device="cpu")
 
@@ -297,7 +309,8 @@ def test_pad_slot_is_identity_and_promotes_like_jax():
 # --------------------------------- model ---------------------------------
 
 @pytest.mark.parametrize("arch,flash", [("qwen2-1.5b", 0), ("qwen2-1.5b", 1),
-                                        ("llama3-8b", 0), ("llama3-8b", 1)])
+                                        ("llama3-8b", 0), ("llama3-8b", 1),
+                                        ("zamba2-7b", 0), ("zamba2-7b", 1)])
 def test_sequential_lm_forward(arch, flash):
     jcfg, cfg = _cfgs(arch, num_layers=4, use_flash_attention=flash)
     jp, p = _both(_draw(lambda k: JM.init_params(k, jcfg), 3))
