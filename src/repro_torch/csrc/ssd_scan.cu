@@ -20,7 +20,7 @@
 // leading axes and (xh, Bm, Cm) a contiguous last axis; A, D [H] f32; h0
 // and h_final contiguous [B, H, P, N] f32; y contiguous [B, S, H, P] in
 // xh's type. Every input is read in its own type and computed in f32.
-// P is a multiple of 32, N a multiple of 16 up to 128.
+// P is a multiple of 32; N is 16, 32, 64 or 128 (an instance each).
 //
 // Design. Two kernels on one stream.
 // (1) `chunk_cb`: C.B^T does not depend on the head (one group: B and C are
@@ -44,7 +44,10 @@
 //       - h = exp(cum_{Q-1}) h + (coeff x)^T B: thread (p, c) owns row p
 //         of h and N/4 of its columns.
 //     M, exp(cum) C and B take turns in one shared buffer, so a block
-//     needs 92.8 KB at N=64 and two blocks fit on an SM (8 warps). All
+//     needs 92.8 KB at N=64 and two blocks fit on an SM (8 warps). With
+//     so few warps the loads of each chunk (x, CB, C, B) cannot hide
+//     behind other blocks' work: their loops have fixed trip counts and
+//     are unrolled, so each thread has eight loads in flight at once. All
 //     products are f32 FMA on the CUDA cores: TF32's 10-bit mantissa would
 //     break the 1e-4 parity with the plain version. No fast math (expf
 //     stays accurate, denormals are kept).
@@ -101,6 +104,7 @@ chunk_cb(const TS* __restrict__ Bm, const TS* __restrict__ Cm,
   float* sB = sC + Q * ld;
   const int c = blockIdx.x, b = blockIdx.y, t0 = c * Q;
   const int tid = threadIdx.x;
+#pragma unroll 4
   for (int i = tid; i < Q * N; i += CB_THREADS) {
     const int t = i / N, n = i % N, g = t0 + t;
     float cv = 0.f, bv = 0.f;
@@ -126,14 +130,14 @@ chunk_cb(const TS* __restrict__ Bm, const TS* __restrict__ Cm,
   }
 }
 
-template <typename TX, typename TS>
+template <int N, typename TX, typename TS>
 __global__ void __launch_bounds__(THREADS, 2)
 ssd_chunk_scan(const TX* __restrict__ xh, const TS* __restrict__ dt,
                const float* __restrict__ A, const TS* __restrict__ Bm,
                const TS* __restrict__ Cm, const float* __restrict__ D,
                const float* __restrict__ cb, const float* __restrict__ h0,
                TX* __restrict__ y, float* __restrict__ hfin, int S, int H,
-               int P, int N, int nc, long long xsb, long long xss,
+               int P, int nc, long long xsb, long long xss,
                long long xsh, long long dsb, long long dss, long long dsh,
                long long bsb, long long bss, long long csb, long long css) {
   extern __shared__ float4 smem4[];
@@ -153,8 +157,8 @@ ssd_chunk_scan(const TX* __restrict__ xh, const TS* __restrict__ dt,
   const TS* db = dt + b * dsb + h * dsh;
   const TS* bb = Bm + b * bsb;
   const TS* cbase = Cm + b * csb;
-  const int ldc = N + 4;
-  const int nj = N / 16;
+  constexpr int ldc = N + 4;
+  constexpr int nj = N / 16;
 
   // y: rows 2g, 2g+1 (loop 1) and Q-2-2g, Q-1-2g (loop 2), columns cy..+7
   const int g = tid >> 2, cy = (tid & 3) * 8;
@@ -182,8 +186,9 @@ ssd_chunk_scan(const TX* __restrict__ xh, const TS* __restrict__ dt,
       if (lane >= o) v += up;
     }
     if (lane == 31) swarp[warp] = v;
-    for (int i = tid; i < Q * PB; i += THREADS) {
-      const int t = i / PB, pp = i % PB;
+#pragma unroll 8
+    for (int k = 0; k < Q * PB / THREADS; ++k) {
+      const int i = tid + k * THREADS, t = i / PB, pp = i % PB;
       sx[i] = t0 + t < S ? to_f32(xb[(long long)(t0 + t) * xss + pp]) : 0.f;
     }
     __syncthreads();
@@ -197,8 +202,9 @@ ssd_chunk_scan(const TX* __restrict__ xh, const TS* __restrict__ dt,
 
     // ---- M[t,s] = CB[t,s] exp(cum_t - cum_s) dt_s, s <= t --------------
     const float* cbc = cb + ((long long)b * nc + c) * Q * Q;
-    for (int i = tid; i < Q * Q; i += THREADS) {
-      const int t = i / Q, s = i % Q;
+#pragma unroll 8
+    for (int k = 0; k < Q * Q / THREADS; ++k) {
+      const int i = tid + k * THREADS, t = i / Q, s = i % Q;
       float m = 0.f;
       if (s <= t) m = cbc[i] * expf(scum[t] - scum[s]) * sdt[s];
       R[t * LDM + s] = m;
@@ -214,6 +220,7 @@ ssd_chunk_scan(const TX* __restrict__ xh, const TS* __restrict__ dt,
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int ra = rows[2 * half], rb = rows[2 * half + 1];
+#pragma unroll 4
       for (int s = 0; s <= rb; ++s) {      // M[ra][ra+1] is 0
         const float4 x0 = *reinterpret_cast<const float4*>(&sx[s * PB + cy]);
         const float4 x1 =
@@ -230,12 +237,14 @@ ssd_chunk_scan(const TX* __restrict__ xh, const TS* __restrict__ dt,
     __syncthreads();                 // done with M
 
     // ---- y += (exp(cum) C) h^T -----------------------------------------
-    for (int i = tid; i < Q * N; i += THREADS) {
-      const int t = i / N, n = i % N, gg = t0 + t;
+#pragma unroll 8
+    for (int k = 0; k < Q * N / THREADS; ++k) {
+      const int i = tid + k * THREADS, t = i / N, n = i % N, gg = t0 + t;
       const float cv = gg < S ? to_f32(cbase[(long long)gg * css + n]) : 0.f;
       R[t * ldc + n] = cv * secum[t];
     }
     __syncthreads();
+#pragma unroll 4
     for (int n = 0; n < N; n += 4) {
       float4 cr[4];
 #pragma unroll
@@ -272,39 +281,37 @@ ssd_chunk_scan(const TX* __restrict__ xh, const TS* __restrict__ dt,
     __syncthreads();                 // done with exp(cum) C
 
     // ---- h = exp(cum_{Q-1}) h + (coeff x)^T B ------------------------------
-    for (int i = tid; i < Q * N; i += THREADS) {
-      const int t = i / N, n = i % N, gg = t0 + t;
+#pragma unroll 8
+    for (int k = 0; k < Q * N / THREADS; ++k) {
+      const int i = tid + k * THREADS, t = i / N, n = i % N, gg = t0 + t;
       R[i] = gg < S ? to_f32(bb[(long long)gg * bss + n]) : 0.f;
     }
     __syncthreads();
-    float hacc[NMAX / 16][4];
+    float hacc[nj][4];
 #pragma unroll
-    for (int j = 0; j < NMAX / 16; ++j)
+    for (int j = 0; j < nj; ++j)
 #pragma unroll
       for (int k = 0; k < 4; ++k) hacc[j][k] = 0.f;
+#pragma unroll 4
     for (int t = 0; t < Q; ++t) {
       const float a = sx[t * PB + ph] * scoef[t];
 #pragma unroll
-      for (int j = 0; j < NMAX / 16; ++j) {
-        if (j < nj) {
-          const float4 bv =
-              *reinterpret_cast<const float4*>(&R[t * N + 16 * j + nq]);
-          hacc[j][0] += a * bv.x;
-          hacc[j][1] += a * bv.y;
-          hacc[j][2] += a * bv.z;
-          hacc[j][3] += a * bv.w;
-        }
+      for (int j = 0; j < nj; ++j) {
+        const float4 bv =
+            *reinterpret_cast<const float4*>(&R[t * N + 16 * j + nq]);
+        hacc[j][0] += a * bv.x;
+        hacc[j][1] += a * bv.y;
+        hacc[j][2] += a * bv.z;
+        hacc[j][3] += a * bv.w;
       }
     }
     const float dl = expf(last);
 #pragma unroll
-    for (int j = 0; j < NMAX / 16; ++j) {
-      if (j < nj) {
+    for (int j = 0; j < nj; ++j) {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          float* hp = &hT[(16 * j + nq + k) * PB + ph];
-          *hp = dl * *hp + hacc[j][k];
-        }
+      for (int k = 0; k < 4; ++k) {
+        float* hp = &hT[(16 * j + nq + k) * PB + ph];
+        *hp = dl * *hp + hacc[j][k];
       }
     }
   }
@@ -318,14 +325,14 @@ ssd_chunk_scan(const TX* __restrict__ xh, const TS* __restrict__ dt,
   }
 }
 
-template <typename TX, typename TS>
+template <int N, typename TX, typename TS>
 int launch(const void* xh, const void* dt, const float* A, const void* Bm,
            const void* Cm, const float* D, const float* h0, void* y,
-           float* hfin, float* cb, int B, int S, int H, int P, int N,
+           float* hfin, float* cb, int B, int S, int H, int P,
            const long long* xs, const long long* ds, const long long* bs,
            const long long* cs, cudaStream_t stream) {
   auto cbk = chunk_cb<TS>;
-  auto scan = ssd_chunk_scan<TX, TS>;
+  auto scan = ssd_chunk_scan<N, TX, TS>;
   static bool opted_in = false;   // above 48 KB only after opting in
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -348,9 +355,34 @@ int launch(const void* xh, const void* dt, const float* A, const void* Bm,
   scan<<<dim3(P / PB, H, B), THREADS, sizeof(float) * scan_floats(N),
          stream>>>(static_cast<const TX*>(xh), static_cast<const TS*>(dt),
                    A, bm, cm, D, cb, h0, static_cast<TX*>(y), hfin, S, H, P,
-                   N, nc, xs[0], xs[1], xs[2], ds[0], ds[1], ds[2], bs[0],
+                   nc, xs[0], xs[1], xs[2], ds[0], ds[1], ds[2], bs[0],
                    bs[1], cs[0], cs[1]);
   return (int)cudaGetLastError();
+}
+
+template <typename TX, typename TS>
+int dispatch_state(int N, const void* xh, const void* dt, const float* A,
+                   const void* Bm, const void* Cm, const float* D,
+                   const float* h0, void* y, float* hfin, float* cb, int B,
+                   int S, int H, int P, const long long* xs,
+                   const long long* ds, const long long* bs,
+                   const long long* cs, cudaStream_t st) {
+  switch (N) {
+    case 16:
+      return launch<16, TX, TS>(xh, dt, A, Bm, Cm, D, h0, y, hfin, cb, B, S,
+                                H, P, xs, ds, bs, cs, st);
+    case 32:
+      return launch<32, TX, TS>(xh, dt, A, Bm, Cm, D, h0, y, hfin, cb, B, S,
+                                H, P, xs, ds, bs, cs, st);
+    case 64:
+      return launch<64, TX, TS>(xh, dt, A, Bm, Cm, D, h0, y, hfin, cb, B, S,
+                                H, P, xs, ds, bs, cs, st);
+    case 128:
+      return launch<128, TX, TS>(xh, dt, A, Bm, Cm, D, h0, y, hfin, cb, B,
+                                 S, H, P, xs, ds, bs, cs, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -365,8 +397,7 @@ extern "C" int ssd_scan_launch(
     long long xsb, long long xss, long long xsh, long long dsb,
     long long dss, long long dsh, long long bsb, long long bss,
     long long csb, long long css, void* stream) {
-  if (S <= 0 || P % PB || N % 16 || N > NMAX || N <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (S <= 0 || P % PB) return (int)cudaErrorInvalidValue;
   const long long xs[3] = {xsb, xss, xsh};
   const long long ds[3] = {dsb, dss, dsh};
   const long long bs[2] = {bsb, bss};
@@ -379,14 +410,14 @@ extern "C" int ssd_scan_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
   if (x_bf16 && s_bf16)
-    return launch<bf, bf>(xh, dt, a, Bm, Cm, d, hi, y, ho, c, B, S, H, P, N,
-                          xs, ds, bs, cs, st);
+    return dispatch_state<bf, bf>(N, xh, dt, a, Bm, Cm, d, hi, y, ho, c, B, S,
+                                  H, P, xs, ds, bs, cs, st);
   if (x_bf16)
-    return launch<bf, float>(xh, dt, a, Bm, Cm, d, hi, y, ho, c, B, S, H, P,
-                             N, xs, ds, bs, cs, st);
+    return dispatch_state<bf, float>(N, xh, dt, a, Bm, Cm, d, hi, y, ho, c, B,
+                                     S, H, P, xs, ds, bs, cs, st);
   if (s_bf16)
-    return launch<float, bf>(xh, dt, a, Bm, Cm, d, hi, y, ho, c, B, S, H, P,
-                             N, xs, ds, bs, cs, st);
-  return launch<float, float>(xh, dt, a, Bm, Cm, d, hi, y, ho, c, B, S, H,
-                              P, N, xs, ds, bs, cs, st);
+    return dispatch_state<float, bf>(N, xh, dt, a, Bm, Cm, d, hi, y, ho, c, B,
+                                     S, H, P, xs, ds, bs, cs, st);
+  return dispatch_state<float, float>(N, xh, dt, a, Bm, Cm, d, hi, y, ho, c,
+                                      B, S, H, P, xs, ds, bs, cs, st);
 }

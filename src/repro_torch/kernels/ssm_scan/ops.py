@@ -23,7 +23,7 @@ from repro_torch.kernels.ssm_scan.ref import ssd_scan_reference
 
 CHUNK = 128                 # the kernel's chunk length
 P_BLOCK = 32                # P is split into blocks of 32 columns
-MAX_STATE = 128             # N is a multiple of 16 up to this
+STATE_SIZES = (16, 32, 64, 128)     # the kernel's instances of N
 DTYPES = (torch.float32, torch.bfloat16)
 _count_lock = threading.Lock()
 
@@ -75,9 +75,9 @@ def _check_cuda(xh, dt, Bm, Cm, chunk):
     if P % P_BLOCK:
         raise ValueError(f"ssd_scan: head dim P={P} is not a multiple of "
                          f"{P_BLOCK}")
-    if N % 16 or not 16 <= N <= MAX_STATE:
-        raise ValueError(f"ssd_scan: state size N={N} is not a multiple "
-                         f"of 16 in [16, {MAX_STATE}]")
+    if N not in STATE_SIZES:
+        raise ValueError(f"ssd_scan: state size N={N} is not one of "
+                         f"{STATE_SIZES}")
     if not dt.dtype == Bm.dtype == Cm.dtype:
         raise ValueError(f"ssd_scan: dt, Bm, Cm are {dt.dtype}, "
                          f"{Bm.dtype}, {Cm.dtype}: the kernel reads them "

@@ -8,8 +8,10 @@ dim P):
 
 The full-sequence mixer and the chunked-prefill mixer run the chunked SSD
 scan through ``kernels.ssm_scan.ssd_scan``, the SSD scan kernel (K5) on
-the card and its plain version (``ssd_chunked``) on the CPU. Decode uses
-the O(1) step form in plain PyTorch, as the JAX package does.
+the card and its plain version on the CPU (``ssd_chunked``, which the
+JAX package keeps here, lives beside the kernel in
+``kernels/ssm_scan/ref.py``). Decode uses the O(1) step form in plain
+PyTorch, as the JAX package does.
 
 The chunk length: the JAX mixer halves its chunk from 128 until it
 divides the sequence (``mamba2.py:155-158``), so S=1000 runs 125 chunks of
@@ -31,7 +33,6 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan import ssd_scan
-from repro_torch.kernels.ssm_scan.ref import ssd_chunked  # noqa: F401
 from repro_torch.models import modules
 
 MAMBA_HEAD_DIM = 64
