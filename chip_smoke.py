@@ -40,8 +40,15 @@ Phases, each fatal on failure (exit code 1, no result line):
      S=1000 ragged causal, S=2048 with a 256 window, S=1000 non-causal,
      a 512-row chunk at q_offset 1536 over 2048 keys, and at zamba2-7b's
      heads (H=Hkv=32, dh=112) B=4, S=2048 causal, each in f32, bf16 and
-     bf16 q over f32 k/v; and dh=32, 64 at small sizes. Limits are the
-     JAX package's own, 5e-5 max abs in f32 and 2e-2 in bf16, and in
+     bf16 q over f32 k/v; and dh=32, 64 at small sizes; then on the
+     strided views the model passes: q, k, v as ``[B, S, heads,
+     dh].transpose(1, 2)`` (qwen2's and zamba2's S=2048 causal), and the
+     512-row chunk at q_offset 1536 over a slice of a ``[B, 2056, Hkv,
+     dh]`` cache, in bf16, f32 (and bf16 q over the f32 cache), and a
+     bf16 q whose base TMA cannot take (copied by the wrapper). Each case
+     is held to its route (1, wgmma + TMA, for bf16 q over bf16 k/v; 2,
+     CUDA cores, otherwise) by the wrapper's per-route counts. Limits are
+     the JAX package's own, 5e-5 max abs in f32 and 2e-2 in bf16, and in
      bf16 also 1e-2 relative L2 over the whole output;
   S. hold the SSD scan (K5) against its plain version on the card at
      zamba2-7b's H=112, P=64, N=64: B=4 and B=1 at S=2048, a ragged
@@ -58,10 +65,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      ``sequential_lm_forward`` at B=4, S=2048 with K4 against the same
      call on the plain attention path, in f32 (max abs logit difference
      <= 1e-3) and in bf16 (relative L2 <= 2e-2), 28 K4 launches a
-     forward; (ii) 4 chunks of 512 through every slot's
-     ``prefill_chunk`` into a KV cache (112 K4 launches), then 8
-     ``sequential_decode_step``s (no K4), each held against a flash
-     forward over the same tokens (<= 1e-3); (iii) ``ServingEngine``
+     forward (in bf16 all 28 on route 1, in f32 none); (ii) 4 chunks
+     of 512 through every slot's ``prefill_chunk`` into a KV cache (112
+     K4 launches), then 8 ``sequential_decode_step``s (no K4), each held
+     against a flash forward over the same tokens (<= 1e-3); (iii)
+     ``ServingEngine``
      (4 slots, cache 128) answers 8 greedy requests, each step's logits
      within 1e-4 of a standalone decode of the same tokens, and its
      tokens the standalone's wherever the top-2 logit gap exceeds 1e-3;
@@ -72,10 +80,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      random from seed 0; prompts from ``SyntheticLM``): (i) prefill at
      B=4, S=2048 with K4 and K5 against the plain attention and the plain
      scan (swapped in here by ``plain_ssd_scan``), f32 <= 1e-3 max abs
-     logit difference, bf16 relative L2 <= 2e-2, 16 K4 and 96 K5
-     launches a forward; (ii) 4 chunks of 512 through every slot's
-     ``prefill_chunk`` (64 K4, 384 K5 launches), then 8 decode steps (no
-     kernel), each within 1e-3 of a kernel forward; (iii) B=1, 32 tokens:
+     logit difference, bf16 relative L2 <= 2e-2, 16 K4 (in bf16 all on
+     route 1) and 96 K5 launches a forward; (ii) 4 chunks of 512
+     through every slot's ``prefill_chunk`` (64 K4, 384 K5 launches),
+     then 8 decode steps (no kernel), each within 1e-3 of a kernel
+     forward; (iii) B=1, 32 tokens:
      the kernel prefill against 32 decode steps from an empty cache,
      within 1e-3; (iv) ``ServingEngine`` (4 slots, cache 64) answers 6
      greedy requests of 8 new tokens, held as in T (iii), no kernel;
@@ -86,7 +95,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      ``F.scaled_dot_product_attention``, given the window's and the
      query offset's boolean mask where it has them, and held against the
      plain version first; yardsticks the port never calls; no single
-     PyTorch call computes K2, K3 or K5).
+     PyTorch call computes K2, K3 or K5). K4 is timed in bf16 (route 1)
+     at every phase-A shape, and in f32 (route 2) at the top shape beside
+     the library call in f32 with TF32 off.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit (``nvidia-smi``), and
@@ -616,13 +627,41 @@ def describe(shape):
             f"causal={causal} window={window} q_offset={off}")
 
 
-def flash_inputs(shape, dq, dkv, seed, torch):
+def flash_inputs(shape, dq, dkv, seed, torch, view="contiguous"):
+    """q, k, v of ``shape``: contiguous ``[B, heads, S, dh]``; or, with
+    ``view="model"``, ``[B, S, heads, dh].transpose(1, 2)`` as
+    ``attention()`` passes them; or with ``view="cache"``, k and v as a
+    slice of a ``[B, Skv + 8, Hkv, dh]`` cache, as ``chunk_attention()``
+    passes them; or with ``view="unaligned"``, q contiguous at 2 bytes
+    past a 16-byte boundary (route 1's wrapper copies it first)."""
     B, H, Hkv, Sq, Skv, dh = shape[:6]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(B, H, Sq, dh, generator=gen, device="cuda").to(dq)
-    k = torch.randn(B, Hkv, Skv, dh, generator=gen, device="cuda").to(dkv)
-    v = torch.randn(B, Hkv, Skv, dh, generator=gen, device="cuda").to(dkv)
-    return q, k, v
+
+    def randn(*size, dtype):
+        return torch.randn(*size, generator=gen, device="cuda").to(dtype)
+
+    if view in ("contiguous", "unaligned"):
+        q = (randn(B, H, Sq, dh, dtype=dq) if view == "contiguous" else
+             randn(1 + B * H * Sq * dh, dtype=dq)[1:].view(B, H, Sq, dh))
+        return (q, randn(B, Hkv, Skv, dh, dtype=dkv),
+                randn(B, Hkv, Skv, dh, dtype=dkv))
+    q = randn(B, Sq, H, dh, dtype=dq).transpose(1, 2)
+    if view == "model":
+        return (q, randn(B, Skv, Hkv, dh, dtype=dkv).transpose(1, 2),
+                randn(B, Skv, Hkv, dh, dtype=dkv).transpose(1, 2))
+    cache = randn(2, B, Skv + 8, Hkv, dh, dtype=dkv)
+    return q, cache[0, :, :Skv].transpose(1, 2), cache[1, :, :Skv].transpose(
+        1, 2)
+
+
+def reset_k4(K):
+    """Set K4's launch counts, in all and by route, to 0."""
+    K.launches = K.launches_route1 = K.launches_route2 = 0
+
+
+def k4_route(dq, dkv, torch):
+    """The route the wrapper must take for q's and k/v's dtypes."""
+    return 1 if dq == dkv == torch.bfloat16 else 2
 
 
 def flash_phase(torch, fops, fref):
@@ -632,20 +671,31 @@ def flash_phase(torch, fops, fref):
     types = {"f32": (f32, f32), "bf16": (bf16, bf16),
              "bf16 q over f32 kv": (bf16, f32)}
     big, small = flash_shapes()
-    cases = [(sh, t) for sh in big for t in types]
-    cases += [(sh, t) for sh in small for t in ("f32", "bf16")]
+    cases = [(sh, t, "contiguous") for sh in big for t in types]
+    cases += [(sh, t, "contiguous") for sh in small for t in ("f32", "bf16")]
+    cases += [(big[i], t, "model") for i in (0, 5) for t in ("bf16", "f32")]
+    cases += [(big[4], t, "cache") for t in types]
+    cases += [(big[0], "bf16", "unaligned")]
     errs = {"float32": 0.0, "bfloat16": 0.0}
     rels = dict(errs)
-    for i, (shape, name) in enumerate(cases):
+    K = fops.flash_attention_kernel
+    for i, (shape, name, view) in enumerate(cases):
         dq, dkv = types[name]
-        q, k, v = flash_inputs(shape, dq, dkv, i, torch)
+        q, k, v = flash_inputs(shape, dq, dkv, i, torch, view)
         B, H, Hkv, Sq, Skv, dh, causal, window, off = shape
-        got = fops.flash_attention_kernel(q, k, v, off, causal=causal,
-                                          window=window)
+        reset_k4(K)
+        got = K(q, k, v, off, causal=causal, window=window)
+        route = k4_route(dq, dkv, torch)
+        check((K.launches, K.launches_route1, K.launches_route2)
+              == (1, int(route == 1), int(route == 2)),
+              f"flash_attention at {describe(shape)} {name} ({view}) took "
+              f"not route {route} alone: {K.launches_route1} launches on "
+              f"route 1, {K.launches_route2} on route 2")
         want = fref.attention_reference(q, k, v, causal=causal,
                                         window=window, q_offset=off)
         torch.cuda.synchronize()
         key = str(dq).removeprefix("torch.")
+        name = f"{name}, {view}, route {route}"
         check(got.dtype == dq and got.shape == want.shape
               and bool(torch.isfinite(got).all()),
               f"flash_attention output at {describe(shape)} {name}")
@@ -676,18 +726,23 @@ def visited_pairs(Sq, Skv, off, causal, window):
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def flash_timings(shape, torch, fops, fref):
-    """K4 in bf16 at one shape: device time beside its bound, the plain
-    version's and ``scaled_dot_product_attention``'s (``is_causal`` where
-    the causal mask is its top-left one; else the boolean mask of the
-    window and the query offset, built before the timing)."""
+def flash_timings(shape, torch, fops, fref, dtype="bfloat16"):
+    """K4 at one shape, in bf16 (route 1) or f32 (route 2): device time
+    beside its bound, the plain version's and
+    ``scaled_dot_product_attention``'s (``is_causal`` where the causal
+    mask is its top-left one; else the boolean mask of the window and the
+    query offset, built before the timing; in f32 with TF32 off, as
+    ``main`` sets it)."""
     import torch.nn.functional as F
     B, H, Hkv, Sq, Skv, dh, causal, window, off = shape
-    q, k, v = flash_inputs(shape, torch.bfloat16, torch.bfloat16, 99, torch)
-    # 2 flops a multiply-add; q.k and p.v each dh of them for every pair
+    dt = getattr(torch, dtype)
+    q, k, v = flash_inputs(shape, dt, dt, 99, torch)
+    # 2 flops a multiply-add; q.k and p.v each dh of them for every pair:
+    # on the tensor cores in bf16, on the CUDA cores in f32
     flops = 4 * B * H * dh * visited_pairs(Sq, Skv, off, causal, window)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, out, k, v
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    peak = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     if window or off or Sq != Skv:
         qpos = off + torch.arange(Sq, device="cuda")[:, None]
         kpos = torch.arange(Skv, device="cuda")[None, :]
@@ -711,13 +766,13 @@ def flash_timings(shape, torch, fops, fref):
                                     q_offset=off)
     got = lib()
     lib_err = abs_err(got, want)
-    check(bool(torch.isfinite(got).all())
-          and lib_err <= FLASH_TOL["bfloat16"],
+    check(bool(torch.isfinite(got).all()) and lib_err <= FLASH_TOL[dtype],
           f"scaled_dot_product_attention differs from the plain version "
-          f"by {lib_err} at {describe(shape)}")
+          f"by {lib_err} at {describe(shape)} {dtype}")
     return {"B": B, "H": H, "Hkv": Hkv, "Sq": Sq, "Skv": Skv, "dh": dh,
             "causal": causal, "window": window, "q_offset": off,
-            "dtype": "bfloat16", "gflop": flops / 1e9,
+            "dtype": dtype, "route": k4_route(dt, dt, torch),
+            "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6,
             "ms": time_ms(lambda: fops.flash_attention_kernel(
                 q, k, v, off, causal=causal, window=window), torch),
@@ -865,20 +920,22 @@ def transformer_phase(torch, fops):
                          f"use_flash_attention=1", "parameters": n_params}
 
     def forward(c, toks_):
-        """Logits of one sequential_lm_forward and the K4 launches it
-        made (the count is set to 0 just before, read just after)."""
-        K.launches = 0
+        """Logits of one sequential_lm_forward, the K4 launches it made and
+        those of them on route 1 (the counts are set to 0 just before,
+        read just after)."""
+        reset_k4(K)
         logits = M.sequential_lm_forward(params, c, toks_)[0]
         torch.cuda.synchronize()
-        return logits, K.launches
+        return logits, K.launches, K.launches_route1
 
     with torch.no_grad():
         # ---- (i) prefill: K4 against the plain attention path ----------
-        flash, n = forward(cfg32, prompt)
-        plain, n0 = forward(cfg32.with_overrides(use_flash_attention=0),
-                            prompt)
-        check(n == n_slots and n0 == 0,
-              f"f32 prefill: {n} K4 launches with flash, {n0} without")
+        flash, n, r1_f32 = forward(cfg32, prompt)
+        plain, n0, _ = forward(cfg32.with_overrides(use_flash_attention=0),
+                               prompt)
+        check(n == n_slots and n0 == 0 and r1_f32 == 0,
+              f"f32 prefill: {n} K4 launches with flash ({r1_f32} on route "
+              f"1), {n0} without")
         err = (flash - plain).abs().max().item()
         log(f"(i) f32 prefill B={PREFILL_B} S={PREFILL_S}: max |logit "
             f"flash - plain| {err:.3g}; K4 launches {n}")
@@ -887,12 +944,13 @@ def transformer_phase(torch, fops):
         del flash, plain
         forward(cfg, prompt)                               # warm-up
         t0 = time.perf_counter()
-        flash, n16 = forward(cfg, prompt)
+        flash, n16, r1_bf16 = forward(cfg, prompt)
         prefill_s = time.perf_counter() - t0
-        plain, n0 = forward(cfg.with_overrides(use_flash_attention=0),
-                            prompt)
-        check(n16 == n_slots and n0 == 0,
-              f"bf16 prefill: {n16} K4 launches with flash, {n0} without")
+        plain, n0, _ = forward(cfg.with_overrides(use_flash_attention=0),
+                               prompt)
+        check(n16 == r1_bf16 == n_slots and n0 == 0,
+              f"bf16 prefill: {n16} K4 launches with flash ({r1_bf16} on "
+              f"route 1), {n0} without")
         rel = ((flash - plain).norm() / plain.norm()).item()
         top1 = (flash.argmax(-1) == plain.argmax(-1)).float().mean().item()
         log(f"(i) bf16 prefill: rel L2 {rel:.3g}, top-1 agreement "
@@ -912,11 +970,11 @@ def transformer_phase(torch, fops):
         caches = M.init_caches(cfg32, batch=PREFILL_B,
                                cache_len=PREFILL_S + DECODE_STEPS,
                                dtype=torch.float32, device="cuda")
-        K.launches = 0
+        reset_k4(K)
         last = prefill_chunks(params, cfg32, prompt, caches, CHUNK)
         torch.cuda.synchronize()
-        n_chunks = K.launches
-        K.launches = 0
+        n_chunks, r1_chunks = K.launches, K.launches_route1
+        reset_k4(K)
         steps = []
         for t in range(DECODE_STEPS):
             lg, caches = M.sequential_decode_step(
@@ -943,7 +1001,11 @@ def transformer_phase(torch, fops):
         summary.update(chunked_prefill_max_abs_diff=err_last,
                        decode_max_abs_diff=err_dec,
                        k4_launches_chunked_prefill=n_chunks,
-                       k4_launches_decode=n_decode)
+                       k4_launches_decode=n_decode,
+                       # on route 1; decode and serving launch no K4
+                       k4_route1={"prefill_f32": r1_f32,
+                                  "prefill_bf16": r1_bf16,
+                                  "chunked_prefill": r1_chunks})
         del caches, ref, steps, last
 
     # ---- (iii) serving: continuous batching against standalone decode ---
@@ -1227,12 +1289,17 @@ def hybrid_phase(torch, fops, sops):
     summary = {"config": f"{cfg.name} use_flash_attention=1",
                "parameters": n_params}
 
+    route1 = {}
+
     def counted(fn):
         """fn()'s result and the K4, K5 launches it made (the counts are
-        set to 0 just before, read just after)."""
-        K4.launches = K5.launches = 0
+        set to 0 just before, read just after); K4's launches on route 1
+        are left in ``route1["last"]``."""
+        reset_k4(K4)
+        K5.launches = 0
         out = fn()
         torch.cuda.synchronize()
+        route1["last"] = K4.launches_route1
         return out, K4.launches, K5.launches
 
     def forward(c, toks_):
@@ -1245,10 +1312,11 @@ def hybrid_phase(torch, fops, sops):
     with torch.no_grad():
         # ---- (i) prefill: K4 and K5 against their plain versions --------
         kern, n4, n5 = forward(cfg32, prompt)
+        r1_f32 = route1["last"]
         plain, p4, p5 = plain_forward(cfg32, prompt)
-        check((n4, n5, p4, p5) == (n_hybrid, n_slots, 0, 0),
+        check((n4, n5, p4, p5, r1_f32) == (n_hybrid, n_slots, 0, 0, 0),
               f"f32 prefill: K4, K5 launched {n4}, {n5} times with the "
-              f"kernels, {p4}, {p5} without")
+              f"kernels (K4 {r1_f32} on route 1), {p4}, {p5} without")
         err = (kern - plain).abs().max().item()
         log(f"(i) f32 prefill B={PREFILL_B} S={PREFILL_S}: max |logit "
             f"kernels - plain| {err:.3g}; K4, K5 launches {n4}, {n5}")
@@ -1260,10 +1328,12 @@ def hybrid_phase(torch, fops, sops):
         t0 = time.perf_counter()
         kern, b4, b5 = forward(cfg, prompt)
         prefill_s = time.perf_counter() - t0
+        r1_bf16 = route1["last"]
         plain, p4, p5 = plain_forward(cfg, prompt)
-        check((b4, b5, p4, p5) == (n_hybrid, n_slots, 0, 0),
+        check((b4, b5, p4, p5, r1_bf16) == (n_hybrid, n_slots, 0, 0,
+                                            n_hybrid),
               f"bf16 prefill: K4, K5 launched {b4}, {b5} times with the "
-              f"kernels, {p4}, {p5} without")
+              f"kernels (K4 {r1_bf16} on route 1), {p4}, {p5} without")
 
         def rel_l2(a, b):
             return ((a.float() - b.float()).norm() / b.float().norm()).item()
@@ -1312,6 +1382,7 @@ def hybrid_phase(torch, fops, sops):
                                dtype=torch.float32, device="cuda")
         last, c4, c5 = counted(lambda: prefill_chunks(
             params, cfg32, prompt, caches, CHUNK))
+        r1_chunks = route1["last"]
         steps = []
 
         def decode():
@@ -1349,6 +1420,7 @@ def hybrid_phase(torch, fops, sops):
         # ---- (iii) a check by decode: prefill against 32 decode steps ---
         short = tokens[:1, :32]
         full, s4, s5 = forward(cfg32, short)
+        r1_check = route1["last"]
         caches = M.init_caches(cfg32, batch=1, cache_len=32,
                                dtype=torch.float32, device="cuda")
         steps = []
@@ -1372,7 +1444,12 @@ def hybrid_phase(torch, fops, sops):
         check(err_check <= 1e-3,
               f"prefill vs decode logits off by {err_check} (> 1e-3)")
         summary.update(decode_check_max_abs_diff=err_check,
-                       launches_decode_check={"K4": s4 + e4, "K5": s5 + e5})
+                       launches_decode_check={"K4": s4 + e4, "K5": s5 + e5},
+                       # on route 1; decode and serving launch no K4
+                       k4_route1={"prefill_f32": r1_f32,
+                                  "prefill_bf16": r1_bf16,
+                                  "chunked_prefill": r1_chunks,
+                                  "decode_check": r1_check})
         del caches, steps, full
 
     # ---- (iv) serving: continuous batching against standalone decode ----
@@ -1425,7 +1502,7 @@ def main():
     with concurrent.futures.ThreadPoolExecutor() as pool:
         libs = list(pool.map(build.build,
                              ("fused_sgd", "quant", "flash_attention",
-                              "ssd_scan")))
+                              "flash_attention_sm90", "ssd_scan")))
     log(f"built {[os.path.relpath(lib, ROOT) for lib in libs]} in "
         f"{time.perf_counter() - t0:.1f}s; ptxas says, for each kernel "
         f"(the whole nvcc output is beside each library, *.log):")
@@ -1516,6 +1593,8 @@ def main():
             "library_note": no_library, "per_shape": list(times)})
     k4_times = [flash_timings(sh, torch, fops, fref)
                 for sh in flash_shapes()[0]]
+    k4_f32 = flash_timings(flash_shapes()[0][0], torch, fops, fref,
+                           "float32")
     z_runs = ("prefill_f32", "prefill_bf16", "chunked_prefill", "decode",
               "decode_check", "serving")
     by_run = {"prefill_f32": t_run["k4_launches_prefill_f32"],
@@ -1526,17 +1605,26 @@ def main():
               **{f"zamba2_{r}": z_run[f"launches_{r}"]["K4"]
                  for r in z_runs}}
     top = k4_times[0]                    # B=4, S=2048, causal, bf16
+    n_k4 = sum(by_run.values())
+    n_route1 = sum(t_run["k4_route1"].values()) + sum(
+        z_run["k4_route1"].values())
     kernels.append({
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        # route 1 (bf16, the serving path's dtype) is the one timed here;
+        # route 2 (f32, bf16 q over f32 kv) is timed in "route2_f32"
+        "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+        "sources_by_route": {
+            "1": "src/repro_torch/csrc/flash_attention_sm90.cu",
+            "2": "src/repro_torch/csrc/flash_attention.cu"},
         "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
-        "launches": sum(by_run.values()), "launches_by_run": by_run,
+        "launches": n_k4, "launches_by_run": by_run,
+        "launches_by_route": {"1": n_route1, "2": n_k4 - n_route1},
         "max_abs_err": max(flash_errs.values()),
         "max_abs_err_by_dtype": flash_errs, "rel_l2_by_dtype": flash_rels,
         "limits": {**FLASH_TOL, "bfloat16_rel_l2": FLASH_BF16_REL_L2},
         **{k: top[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                "bound_by")},
-        "per_shape": k4_times})
+        "per_shape": k4_times, "route2_f32": k4_f32})
     k5_times = [ssd_timings(sh, torch, sops, sref) for sh in SSD_SHAPES]
     k5_by_run = {f"zamba2_{r}": z_run[f"launches_{r}"]["K5"] for r in z_runs}
     top = k5_times[0]                    # B=4, S=2048, f32

@@ -1,4 +1,8 @@
-// Flash attention forward (K4) for NVIDIA Hopper (sm_90a).
+// Flash attention forward (K4), route 2: f32 q, k and v, and bf16 q over
+// an f32 kv cache, on the CUDA cores of Hopper (sm_90a). bf16 q over bf16
+// k and v take route 1 (csrc/flash_attention_sm90.cu, wgmma + TMA); this
+// file has no instance for that pair, so neither route falls back to the
+// other.
 //
 // Replaces the TPU kernel `flash_attention_kernel` (`_kernel`) of
 // src/repro/kernels/flash_attention/kernel.py: blocked online-softmax
@@ -12,10 +16,10 @@
 // Layout: q [B, H, Sq, dh], k and v [B, Hkv, Skv, dh], each with any
 // strides over (b, head, position) and a contiguous last axis; the output
 // is contiguous [B, H, Sq, dh] in q's type. q and k/v are read each in its
-// own type (f32 or bf16) and computed in f32, so bf16 q over an f32 kv
-// cache rounds as the JAX package does. dh is 32, 64, 112 (zamba2-7b) or
-// 128: a multiple of 16, since each of a row's 16 lanes owns dh/16 output
-// columns, and of 4, for the float4 loads of the q.k loop.
+// own type and computed in f32, so bf16 q over an f32 kv cache rounds as
+// the JAX package does. dh is 32, 64, 112 (zamba2-7b) or 128: a multiple
+// of 16, since each of a row's 16 lanes owns dh/16 output columns, and of
+// 4, for the float4 loads of the q.k loop.
 //
 // Design. One block of 256 threads per (q tile of 64 rows, head, batch);
 // the sequential kv grid axis of the TPU kernel, which carries acc, m and
@@ -31,15 +35,12 @@
 // (the JAX wrapper's padding does, for causal=False with a ragged Skv).
 // Q tiles run latest first, so the long causal rows start early.
 //
-// Bound. At the slice's largest shape (B=4, H=12, Hkv=2, S=2048, dh=128,
-// causal, bf16) the work is 4*B*H*dh flops for each visited (q, k) pair,
-// 51.6 GFLOP, against 58.7 MB of inputs and output: 0.052 ms at the
-// tensor cores' 989 TFLOP/s (bf16) against 0.018 ms at 3.35 TB/s, so the
-// bound is compute on the tensor cores. This first version computes on
-// the CUDA cores in f32 FMA (67 TFLOP/s peak, 15x below the tensor
-// cores) and does not overlap the tile loads with compute; it is expected
-// at 1-4 ms there, 20-80x its bound. Tensor-core products (mma.sync or
-// wgmma) fed by TMA are later work (ROADMAP Queue 2).
+// Bound. At qwen2-1.5b's prefill shape in f32 (B=4, H=12, Hkv=2, S=2048,
+// dh=128, causal) the work is 4*B*H*dh flops for each visited (q, k)
+// pair, 51.6 GFLOP: 0.77 ms at the 67 TFLOP/s of f32 FMA outside the
+// tensor cores, which is where full f32 products run. This kernel does
+// not overlap the tile loads with compute. Products in 3xTF32 on wgmma
+// are later work (ROADMAP Queue 2).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -264,9 +265,8 @@ int dispatch_types(int q_bf16, int kv_bf16, const void* q, const void* k,
                    const long long* vs, int q_offset, int causal, int window,
                    float scale, cudaStream_t st) {
   using bf = __nv_bfloat16;
-  if (q_bf16 && kv_bf16)
-    return launch<DH, bf, bf>(q, k, v, o, B, H, Hkv, Sq, Skv, qs, ks, vs,
-                              q_offset, causal, window, scale, st);
+  if (q_bf16 && kv_bf16)          // route 1's pair: flash_attention_sm90.cu
+    return (int)cudaErrorInvalidValue;
   if (q_bf16)
     return launch<DH, bf, float>(q, k, v, o, B, H, Hkv, Sq, Skv, qs, ks, vs,
                                  q_offset, causal, window, scale, st);

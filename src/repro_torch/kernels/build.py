@@ -8,8 +8,9 @@ launchers), so it compiles in seconds without PyTorch's headers:
 
 The library is built at first use, from the sources in the checkout only,
 into ``build/repro_torch/`` at the repository root. Its file name carries
-a hash of the source and the flags, so an edited ``.cu`` rebuilds and a
-stale library is never loaded. nvcc's output (``-Xptxas -v``: registers,
+a hash of the source, of every ``csrc`` header it includes and of the
+flags, so an edited ``.cu`` or ``.cuh`` rebuilds and a stale library is
+never loaded. nvcc's output (``-Xptxas -v``: registers,
 shared memory, spills) is kept beside it as ``<name>-<hash>.log``.
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -45,10 +47,28 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[pathlib.Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly
+    or through another header, in the order first reached."""
+    seen = [CSRC / f"{name}.cu"]
+    for path in seen:                        # grows as headers are found
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.exists() and dep not in seen:
+                seen.append(dep)
+    return seen
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+    """The library's path, keyed on the source, the headers it includes
+    and the nvcc flags it is built with."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> pathlib.Path:

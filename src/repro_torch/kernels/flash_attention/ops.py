@@ -5,11 +5,18 @@
 function whose backward recomputes the plain version, as the JAX package's
 custom VJP does with ``jax.vjp``).
 
-``flash_attention_kernel`` launches the CUDA kernel of
-``csrc/flash_attention.cu`` for tensors on a CUDA device, and runs the
-plain version of ``ref.py`` for tensors on the CPU. There is no other
-fallback: a CUDA tensor goes through the kernel or the call raises. Nothing
-is padded: the kernel masks the true sequence edges.
+``flash_attention_kernel`` launches a CUDA kernel for tensors on a CUDA
+device, and runs the plain version of ``ref.py`` for tensors on the CPU.
+Two kernels, chosen by dtype alone (``launch_plan``):
+
+- route 1, bf16 q over bf16 k and v (the serving path's dtype):
+  ``csrc/flash_attention_sm90.cu``, wgmma on the tensor cores fed by TMA;
+- route 2, f32 q, and bf16 q over an f32 kv cache:
+  ``csrc/flash_attention.cu``, f32 on the CUDA cores.
+
+Each pair has exactly one kernel and there is no other fallback: a CUDA
+tensor goes through its route's kernel or the call raises. Nothing is
+padded: both kernels mask the true sequence edges.
 """
 from __future__ import annotations
 
@@ -26,14 +33,58 @@ DTYPES = (torch.float32, torch.bfloat16)
 _count_lock = threading.Lock()
 
 
-def _library():
-    fn = build.load("flash_attention").flash_attention_launch
+def _library(route: int):
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if route == 1:
+        fn = build.load("flash_attention_sm90").flash_attention_sm90_launch
+        types = [vp] * 4 + [i] * 6 + [ll] * 9 + [i, i, i, ctypes.c_float, vp]
+    else:
+        fn = build.load("flash_attention").flash_attention_launch
+        types = [vp] * 4 + [i] * 8 + [ll] * 9 + [i, i, i, ctypes.c_float, vp]
     if fn.argtypes is None:
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([vp] * 4 + [i] * 8 + [ll] * 9
-                       + [i, i, i, ctypes.c_float, vp])
-        fn.restype = ctypes.c_int
+        fn.argtypes, fn.restype = types, ctypes.c_int
     return fn
+
+
+def _tma_ready(t) -> bool:
+    """What route 1's TMA tensor maps need of a [B, heads, seq, dh] view:
+    a contiguous last axis, a 16-byte aligned base, and the other strides
+    multiples of 16 bytes (a stride over a dimension of size 1 is never
+    used)."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(n == 1 or st * t.element_size() % 16 == 0
+                    for n, st in zip(t.shape[:-1], t.stride()[:-1])))
+
+
+def launch_plan(q, k, v):
+    """(route, which of q, k, v to copy first), from the dtypes, shapes,
+    strides and base alignment alone. Route 1 for bf16 q over bf16 k and
+    v, route 2 otherwise. Route 2 needs only a contiguous last axis; route
+    1 also what TMA needs (``_tma_ready``). A view the model passes
+    (``[B, S, H, dh].transpose(1, 2)``, or such a view over a slice of the
+    KV cache) needs no copy."""
+    bf = torch.bfloat16
+    route = 1 if q.dtype == k.dtype == v.dtype == bf else 2
+    ready = _tma_ready if route == 1 else (lambda t: t.stride(-1) == 1)
+    return route, tuple(not ready(t) for t in (q, k, v))
+
+
+def prepare(q, k, v):
+    """(route, q, k, v): the route of ``launch_plan``, and each tensor that
+    route's kernel cannot read in place replaced by a fresh contiguous copy
+    (a clone: ``.contiguous()`` would keep a contiguous tensor's
+    misaligned base)."""
+    route, copy = launch_plan(q, k, v)
+    return (route, *(t.clone(memory_format=torch.contiguous_format) if c
+                     else t for t, c in zip((q, k, v), copy)))
+
+
+def _strides(t):
+    """t's (batch, head, position) strides, with the stride of a dimension
+    of size 1 replaced by one TMA accepts (it is never multiplied)."""
+    outer = max(st * n for n, st in zip(t.shape, t.stride()) if n > 1)
+    return [st if n > 1 else outer
+            for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
 def _check(q, k, v):
@@ -69,7 +120,8 @@ def flash_attention_kernel(q, k, v, q_offset=None, *, causal: bool = True,
     """q: [B, H, Sq, dh]; k, v: [B, Hkv, Skv, dh]. Returns [B, H, Sq, dh]
     in q's dtype. ``q_offset`` (an int or a one-element int tensor): the
     global position of q row 0, for chunked prefill against a longer kv
-    cache. Counts each kernel launch in ``flash_attention_kernel.launches``.
+    cache. Counts each kernel launch in ``flash_attention_kernel.launches``
+    and in ``launches_route1`` or ``launches_route2`` beside it.
     """
     _check(q, k, v)
     B, H, Sq, dh = q.shape
@@ -84,23 +136,32 @@ def flash_attention_kernel(q, k, v, q_offset=None, *, causal: bool = True,
         return out
     if Skv == 0:
         raise ValueError("flash_attention: no keys (Skv = 0)")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    launch = _library()
+    # a view the kernel cannot read in place is copied here, not refused
+    route, q, k, v = prepare(q, k, v)
+    launch = _library(route)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    bf = torch.bfloat16
+    types = ([] if route == 1 else
+             [int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16)])
     rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                int(q.dtype == bf), int(k.dtype == bf), B, H, Hkv, Sq, Skv,
-                dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], off,
-                int(bool(causal)), int(window), scale, stream)
+                *types, B, H, Hkv, Sq, Skv, dh, *_strides(q), *_strides(k),
+                *_strides(v), off, int(bool(causal)), int(window), scale,
+                stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_attention kernel (route {route}) launch "
+                           f"failed: error {rc}")
     with _count_lock:
         flash_attention_kernel.launches += 1
+        if route == 1:
+            flash_attention_kernel.launches_route1 += 1
+        else:
+            flash_attention_kernel.launches_route2 += 1
     return out
 
 
+# launches in all, and by route (route 1: wgmma, route 2: CUDA cores)
 flash_attention_kernel.launches = 0
+flash_attention_kernel.launches_route1 = 0
+flash_attention_kernel.launches_route2 = 0
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -172,3 +172,167 @@ def test_kernel_wrapper_raises_instead_of_falling_back():
                                torch.zeros(1, 3, 8, 32))
     flash_attention_kernel(q, k, v)                     # CPU: plain version
     assert flash_attention_kernel.launches == n0
+
+
+# ------------------------- routing (no card needed) -----------------------
+
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    _strides, launch_plan, prepare)
+from repro_torch.models import attention as attn  # noqa: E402
+
+
+def _views(kind, dt, dh, B=2, H=4, Hkv=2, S=48):
+    """q, k, v of one layout: ``contiguous`` [B, heads, S, dh]; ``model``,
+    the [B, S, heads, dh].transpose(1, 2) views ``attention()`` passes;
+    ``cache``, a 16-row chunk over a slice of a [B, S + 8, Hkv, dh] cache,
+    as ``chunk_attention()`` passes it."""
+    dq, dkv = dt
+    if kind == "contiguous":
+        return (torch.zeros(B, H, S, dh, dtype=dq),
+                torch.zeros(B, Hkv, S, dh, dtype=dkv),
+                torch.zeros(B, Hkv, S, dh, dtype=dkv))
+    if kind == "model":
+        return (torch.zeros(B, S, H, dh, dtype=dq).transpose(1, 2),
+                torch.zeros(B, S, Hkv, dh, dtype=dkv).transpose(1, 2),
+                torch.zeros(B, S, Hkv, dh, dtype=dkv).transpose(1, 2))
+    cache = torch.zeros(2, B, S + 8, Hkv, dh, dtype=dkv)
+    return (torch.zeros(B, 16, H, dh, dtype=dq).transpose(1, 2),
+            cache[0, :, :S].transpose(1, 2), cache[1, :, :S].transpose(1, 2))
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "model", "cache"])
+@pytest.mark.parametrize("dh", [32, 64, 112, 128])
+@pytest.mark.parametrize("dt,route", [((BF16, BF16), 1), ((F32, F32), 2),
+                                      ((BF16, F32), 2), ((F32, BF16), 2)])
+def test_launch_plan_routes_by_dtype_and_copies_nothing_the_model_passes(
+        kind, dh, dt, route):
+    q, k, v = _views(kind, dt, dh)
+    assert launch_plan(q, k, v) == (route, (False, False, False))
+
+
+@pytest.mark.parametrize("dt,route", [((BF16, BF16), 1), ((F32, F32), 2)])
+def test_launch_plan_copies_what_the_kernel_cannot_read(dt, route):
+    dq, dkv = dt
+    q, k, v = _views("model", dt, 64)
+    # a base 2 bytes off 16-byte alignment: TMA (route 1) needs a copy
+    odd = torch.zeros(1 + q.numel(), dtype=dq)[1:].view(q.shape)
+    assert launch_plan(odd, k, v) == (route, (route == 1, False, False))
+    # rows of 64 + 4 elements: a head stride that is no multiple of 16 B
+    # in bf16 (136 B); 272 B in f32 is one
+    wide = torch.zeros(2, 4, 48, 68, dtype=dq)[..., :64]
+    assert launch_plan(wide, k, v) == (route, (route == 1, False, False))
+    # a last axis that is not contiguous: every route copies
+    step = torch.zeros(2, 2, 48, 128, dtype=dkv)[..., ::2]
+    assert launch_plan(q, step, v) == (route, (False, True, False))
+    # a stride over a dimension of size 1 is never used
+    one = torch.zeros(1, 4, 48, 64, dtype=dq).as_strided(
+        (1, 4, 48, 64), (3, 64 * 48, 64, 1))
+    k1, v1 = (t[:1] for t in (k, v))
+    assert launch_plan(one, k1, v1) == (route, (False, False, False))
+    # ... and the kernel is handed one TMA takes in its place
+    assert _strides(one)[0] * one.element_size() % 16 == 0
+    # what is copied comes out readable, with the same values
+    for args in ((odd, k, v), (wide, k, v), (q, step, v)):
+        got = prepare(*args)
+        assert launch_plan(*got[1:]) == (route, (False, False, False))
+        assert all(torch.equal(a, b) for a, b in zip(args, got[1:]))
+
+
+@pytest.mark.parametrize("dtype,cache_dtype,route",
+                         [(BF16, BF16, 1), (F32, F32, 2), (BF16, F32, 2)])
+def test_model_attention_views_take_their_route_without_a_copy(
+        monkeypatch, dtype, cache_dtype, route):
+    """The tensors ``attention()`` and ``chunk_attention()`` hand the
+    kernel, recorded on their way in, and the plan made for them."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-1.5b").reduced(num_layers=2).with_overrides(
+        use_flash_attention=1)
+    p = attn.init_attention(torch.Generator().manual_seed(0), cfg)
+    plans = []
+
+    def record(fn):
+        def wrapped(q, k, v, *a, **kw):
+            plans.append(launch_plan(q, k, v))
+            return fn(q, k, v, *a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(attn, "flash_attention", record(attn.flash_attention))
+    monkeypatch.setattr(attn, "flash_attention_kernel",
+                        record(attn.flash_attention_kernel))
+    B, S, L, hd = 2, 24, 8, cfg.head_dim
+    x = torch.randn(B, S, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    pos = torch.arange(S)[None].repeat(B, 1)
+    attn.attention(p, x.to(dtype), cfg=cfg, positions=pos, dtype=dtype)
+    cache = {n: torch.zeros(B, S + 8, cfg.num_kv_heads, hd,
+                            dtype=cache_dtype) for n in ("k", "v")}
+    attn.chunk_attention(p, x[:, :L].to(dtype), cache, cfg=cfg, start=16,
+                         dtype=dtype)
+    # attention() casts its kv to the compute dtype; the cache keeps its own
+    want_prefill = (1 if dtype == BF16 else 2, (False,) * 3)
+    assert plans == [want_prefill, (route, (False,) * 3)]
+
+
+# ------------------- route 1's rounding, modelled on the CPU ---------------
+
+def _route1_model(q, k, v, *, causal, window, q_offset, BK=128):
+    """Route 1's arithmetic in torch on bf16 inputs: f32 products of the
+    bf16 values, the f32 scores scaled after the product, an online
+    softmax over kv tiles of BK (the kernel's tiles and skips), P rounded
+    to bf16 before P.V, l summed over the f32 P, clamped at 1e-30."""
+    B, H, Sq, dh = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    heads = torch.arange(H) * Hkv // H
+    qf = q.float()
+    kf, vf = (t.float().index_select(1, heads) for t in (k, v))
+    scale = dh ** -0.5
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros(B, H, Sq, 1)
+    acc = torch.zeros(B, H, Sq, dh)
+    qpos = q_offset + torch.arange(Sq)[:, None]
+    hi = -(-Skv // BK)
+    if causal:
+        hi = min(hi, (q_offset + Sq - 1) // BK + 1)
+    lo = max(q_offset - window + 1, 0) // BK if window else 0
+    for t in range(lo, hi):
+        kpos = t * BK + torch.arange(min(BK, Skv - t * BK))[None, :]
+        s = (qf @ kf[:, :, t * BK:t * BK + BK].transpose(-1, -2)) * scale
+        ok = torch.ones(Sq, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window:
+            ok &= kpos > qpos - window
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        pf = torch.exp(s - m_new)
+        l = l * corr + pf.sum(-1, keepdim=True)
+        acc = acc * corr + pf.to(BF16).float() @ vf[:, :, t * BK:t * BK + BK]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(BF16)
+
+
+@pytest.mark.parametrize("dh", [112, 128])
+@pytest.mark.parametrize("causal,window,q_offset,Sq", [
+    (True, 0, 0, 2048), (True, 256, 0, 2048), (False, 0, 0, 2048),
+    (True, 0, 1536, 512)])
+def test_route1_rounding_model_is_within_the_bf16_budget(dh, causal, window,
+                                                         q_offset, Sq):
+    """The bf16 budget of route 1, known before the card: its rounding,
+    emulated at S=2048, against the JAX package's dense reference (f32
+    softmax of the same bf16 inputs, output rounded to bf16), within the
+    limits chip_smoke.py holds the kernel to: 2e-2 max abs, 1e-2 rel L2.
+    A q_offset chunk is held against those rows of the full attention."""
+    B, H, Hkv, Skv = 1, 4, 2, 2048
+    (jq, jk, jv), (q, k, v) = _qkv(B, H, Hkv, Skv, Skv, dh, dh + Sq,
+                                   "bfloat16")
+    got = _route1_model(q[:, :, q_offset:q_offset + Sq], k, v, causal=causal,
+                        window=window, q_offset=q_offset)
+    want = _f32(jax_reference(jq, jk, jv, causal=causal, window=window))[
+        :, :, q_offset:q_offset + Sq]
+    diff = _f32(got) - want
+    assert np.abs(diff).max() <= 2e-2
+    assert np.linalg.norm(diff) / np.linalg.norm(want) <= 1e-2

@@ -130,6 +130,24 @@ def test_library_key_follows_the_source():
     assert build.library_path("fused_sgd") == path     # deterministic
 
 
+def test_library_key_follows_the_headers_the_source_includes(monkeypatch,
+                                                             tmp_path):
+    """An edited ``.cuh`` rebuilds every source that includes it, directly
+    or through another header, and no other."""
+    (tmp_path / "a.cu").write_text('#include "x.cuh"\n#include <cuda.h>\n')
+    (tmp_path / "b.cu").write_text("int b;\n")
+    (tmp_path / "x.cuh").write_text('  # include "y.cuh"\n')
+    (tmp_path / "y.cuh").write_text("// y\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [p.name for p in build.sources("a")] == ["a.cu", "x.cuh", "y.cuh"]
+    assert [p.name for p in build.sources("b")] == ["b.cu"]
+    a, b = build.library_path("a"), build.library_path("b")
+    (tmp_path / "y.cuh").write_text("// y, edited\n")
+    assert build.library_path("a") != a and build.library_path("b") == b
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-G"])
+    assert build.library_path("b") != b
+
+
 def test_quant_raises_instead_of_falling_back():
     n0 = (qops.quantize_ef.launches, qops.dequantize.launches)
     x = torch.zeros(4, 8, device="meta")
