@@ -106,6 +106,7 @@ non-zero without them, or when ``src/repro_torch`` is not beside it.
 """
 import concurrent.futures
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -120,6 +121,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM, f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM, bf16 on the tensor cores, dense
+TF32_FLOPS_PER_S = 495e12     # H100 SXM, tf32 on the tensor cores, dense
 FLASH_TOL = {"float32": 5e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:31
 # bf16 over the whole output as well: at S=2048 a causal row's values are
 # ~0.03-0.05, so 2e-2 max abs alone would let a fault in long rows pass
@@ -1182,6 +1184,88 @@ def ssd_phase(torch, sops, sref):
     return errs, rels, model
 
 
+# small shapes beside phase S's: the other N and P the wrapper takes, each
+# pair of input types, h0 with h_final, a random D, the mixer's views (one
+# conv output split, no copy) and a base TMA cannot take (copied first):
+# (B, S, H, P, N, x dtype, dt/B/C dtype, with h0, view)
+SSD_COVERAGE = [
+    (2, 300, 5, 32, 16, "float32", "float32", True, "contiguous"),
+    (1, 200, 3, 96, 32, "bfloat16", "float32", False, "contiguous"),
+    (2, 260, 4, 64, 128, "float32", "bfloat16", True, "contiguous"),
+    (1, 130, 2, 128, 64, "bfloat16", "bfloat16", False, "contiguous"),
+    (2, 384, 6, 64, 64, "float32", "float32", True, "mixer"),
+    (1, 100, 3, 64, 64, "float32", "float32", False, "unaligned")]
+
+
+def ssd_coverage(torch, sops, sref):
+    """K5 against its plain version at ``SSD_COVERAGE``, at phase S's
+    limits (f32 1e-4 max abs for y and h_final; bf16 y its f32 plain value
+    correctly rounded), each case held to its copy plan. Returns the
+    largest f32 error."""
+    import torch.nn.functional as F
+    worst = 0.0
+    for i, (B, S, H, P, N, xd, sd, with_h0, view) in enumerate(
+            SSD_COVERAGE):
+        gen = torch.Generator(device="cuda").manual_seed(300 + i)
+
+        def n(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+
+        if view == "mixer":            # as mamba2._ssm_inputs splits it
+            xi, Bm, Cm = torch.split(n(B, S, H * P + 2 * N),
+                                     [H * P, N, N], dim=-1)
+            xh = xi.reshape(B, S, H, P)
+        elif view == "unaligned":      # 4 bytes past a 16-byte boundary
+            xh = n(1 + B * S * H * P)[1:].view(B, S, H, P)
+            Bm, Cm = n(B, S, N), n(B, S, N)
+        else:
+            xh, Bm, Cm = n(B, S, H, P), n(B, S, N), n(B, S, N)
+        xt, st = getattr(torch, xd), getattr(torch, sd)
+        if xt != torch.float32:
+            xh = xh.to(xt)
+        if st != torch.float32:
+            Bm, Cm = Bm.to(st), Cm.to(st)
+        dt = (F.softplus(n(B, S, H)) * 0.1).to(st)
+        A, D = -torch.exp(0.3 * n(H)), n(H)
+        h0 = 0.5 * n(B, H, P, N) if with_h0 else None
+        what = (f"B={B} S={S} H={H} P={P} N={N} xh {xd} dt/B/C {sd} "
+                f"h0={with_h0} {view}")
+        plan = sops.launch_plan(xh, Bm, Cm, with_h0)
+        check(plan.copy == (view == "unaligned", False, False),
+              f"ssd_scan's plan copies {plan.copy} at {what}")
+        got = sops.ssd_scan_kernel(xh, dt, A, Bm, Cm, D, h0=h0)
+        want = sref.ssd_scan_reference(xh.float(), dt, A, Bm, Cm, D, h0=h0)
+        herr = 0.0
+        if with_h0:
+            (got, h_got), (want, h_want) = got, want
+            herr = abs_err(h_got, h_want)
+        torch.cuda.synchronize()
+        check(got.dtype == xh.dtype and got.shape == want.shape
+              and bool(torch.isfinite(got).all()),
+              f"ssd_scan output at {what}")
+        err = abs_err(got, want)
+        if xt == torch.float32:
+            log(f"  K5 {what}: max abs err {err:.3g}, h_final {herr:.3g} "
+                f"(limit {SSD_TOL['float32']})")
+            check(max(err, herr) <= SSD_TOL["float32"],
+                  f"ssd_scan differs from its plain version by "
+                  f"{max(err, herr)} at {what}")
+            worst = max(worst, err, herr)
+        else:
+            half = torch.ldexp(torch.ones_like(want),
+                               torch.frexp(want).exponent - 9)
+            excess = ((got.float() - want).abs() - half
+                      - SSD_TOL["float32"]).max().item()
+            log(f"  K5 {what}: max abs err {err:.3g} from the f32 plain "
+                f"result; excess over half a bf16 spacing + "
+                f"{SSD_TOL['float32']}: {excess:.3g} (limit 0)")
+            check(excess <= 0, f"ssd_scan's bf16 output is not its f32 "
+                  f"value rounded, by {excess}, at {what}")
+    log(f"ssd_scan within the limits at {len(SSD_COVERAGE)} coverage "
+        f"cases")
+    return worst
+
+
 def ssd_timings(shape, torch, sops, sref):
     """K5 at one phase-S shape, zamba2's draw: device time beside its
     bound and the plain version's. No single PyTorch call computes the
@@ -1192,6 +1276,8 @@ def ssd_timings(shape, torch, sops, sref):
           if with_h0 else None)
     flop, nbytes = ssd_work(B, S, xdtype, with_h0)
     t_ops, t_bytes = flop / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    # the same work as three tf32 products on the tensor cores (3xTF32)
+    t_tc = 3 * flop / TF32_FLOPS_PER_S
     return {"B": B, "S": S, "H": SSD_H, "P": SSD_P, "N": SSD_N,
             "xh_dtype": xdtype, "h0": with_h0, "gflop": flop / 1e9,
             "mbytes": nbytes / 1e6,
@@ -1200,7 +1286,34 @@ def ssd_timings(shape, torch, sops, sref):
                 *ins, h0=h0), torch),
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms_3xtf32": 1e3 * max(t_tc, t_bytes),
+            "bound_by_3xtf32": "operations" if t_tc >= t_bytes else "bytes",
             "library_ms": None}
+
+
+def ssd_pass_times(shape, torch, sops, calls=5):
+    """Device time of each of K5's three kernels at one phase-S shape, in
+    ms a call, from ``torch.profiler``'s ``key_averages()`` over ``calls``
+    calls; None where the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    B, S, xdtype, with_h0 = shape
+    ins = ssd_inputs(B, S, "zamba2", xdtype, 7, torch)
+    h0 = (torch.zeros(B, SSD_H, SSD_P, SSD_N, device="cuda")
+          if with_h0 else None)
+    sops.ssd_scan_kernel(*ins, h0=h0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            sops.ssd_scan_kernel(*ins, h0=h0)
+        torch.cuda.synchronize()
+    out = {}
+    for name in ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out"):
+        us = sum(getattr(e, "device_time_total", None)
+                 or getattr(e, "cuda_time_total", 0) or 0
+                 for e in prof.key_averages() if name in e.key)
+        out[name] = us / 1e3 / calls if us else None
+    return out
 
 
 @contextlib.contextmanager
@@ -1513,6 +1626,13 @@ def main():
                 name = line.split("'")[1]
             elif "registers" in line or "spill" in line:
                 log(f"  {name[:90]}: {line.split(':', 1)[-1].strip()}")
+    smem = build.load("ssd_scan").ssd_scan_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_int
+    log(f"  K5 dynamic shared memory at N=64 (passes 1, 3; x/dt,B,C f32 "
+        f"or bf16): " + ", ".join(
+            f"{'bf16' if xb else 'f32'}/{'bf16' if sb else 'f32'} "
+            f"{smem(64, xb, sb, 1)}, {smem(64, xb, sb, 3)} B"
+            for xb in (0, 1) for sb in (0, 1)))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.runtime.workload import WorkloadSpec
@@ -1534,6 +1654,7 @@ def main():
 
     # ---- phase S: K5 vs plain at the hybrid slice's shapes -----------------
     ssd_errs, ssd_rels, ssd_model = ssd_phase(torch, sops, sref)
+    ssd_cover = ssd_coverage(torch, sops, sref)
 
     # ---- phase 2: the port on the card against the CPU --------------------
     cross_device_checks(torch)
@@ -1595,6 +1716,14 @@ def main():
                 for sh in flash_shapes()[0]]
     k4_f32 = flash_timings(flash_shapes()[0][0], torch, fops, fref,
                            "float32")
+    # route 2 at the chunked-prefill shape and at zamba2-7b's
+    k4_f32_more = [flash_timings(flash_shapes()[0][i], torch, fops, fref,
+                                 "float32") for i in (4, 5)]
+    log(f"K4 route 1 at qwen2's top shape (bf16): {k4_times[0]['ms']:.4f} "
+        f"ms (0.1627-0.1652 ms in PR 16's runs on an H100 at 700 W); route "
+        f"2 (f32): " + ", ".join(f"{t['ms']:.4f} ms at Sq={t['Sq']} "
+                                f"Skv={t['Skv']} dh={t['dh']}"
+                                for t in (k4_f32, *k4_f32_more)))
     z_runs = ("prefill_f32", "prefill_bf16", "chunked_prefill", "decode",
               "decode_check", "serving")
     by_run = {"prefill_f32": t_run["k4_launches_prefill_f32"],
@@ -1624,8 +1753,14 @@ def main():
         "limits": {**FLASH_TOL, "bfloat16_rel_l2": FLASH_BF16_REL_L2},
         **{k: top[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                "bound_by")},
-        "per_shape": k4_times, "route2_f32": k4_f32})
+        "per_shape": k4_times, "route2_f32": k4_f32,
+        "route2_f32_per_shape": k4_f32_more})
     k5_times = [ssd_timings(sh, torch, sops, sref) for sh in SSD_SHAPES]
+    k5_passes = ssd_pass_times(SSD_SHAPES[0], torch, sops)
+    log(f"K5 at B=4 S=2048 f32: {k5_times[0]['ms']:.4f} ms (bound "
+        f"{k5_times[0]['bound_ms']:.4f} f32, "
+        f"{k5_times[0]['bound_ms_3xtf32']:.4f} 3xTF32); by pass "
+        f"(profiler, ms a call): {k5_passes}")
     k5_by_run = {f"zamba2_{r}": z_run[f"launches_{r}"]["K5"] for r in z_runs}
     top = k5_times[0]                    # B=4, S=2048, f32
     kernels.append({
@@ -1639,7 +1774,10 @@ def main():
                    "model_draw_rel_l2": SSD_MODEL_REL_L2},
         "model_draw": ssd_model,
         **{k: top[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                               "bound_by")},
+                               "bound_by", "bound_ms_3xtf32",
+                               "bound_by_3xtf32")},
+        "coverage_max_abs_err_f32": ssd_cover,
+        "ms_by_pass": k5_passes,
         "library_note": "no single PyTorch call computes the SSD scan",
         "per_shape": k5_times})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -27,6 +27,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_reference
+from repro_torch.kernels.tma import ready as _tma_ready
+from repro_torch.kernels.tma import strides as _strides
 
 HEAD_DIMS = (32, 64, 112, 128)      # 112: zamba2-7b's hybrid attention
 DTYPES = (torch.float32, torch.bfloat16)
@@ -44,16 +46,6 @@ def _library(route: int):
     if fn.argtypes is None:
         fn.argtypes, fn.restype = types, ctypes.c_int
     return fn
-
-
-def _tma_ready(t) -> bool:
-    """What route 1's TMA tensor maps need of a [B, heads, seq, dh] view:
-    a contiguous last axis, a 16-byte aligned base, and the other strides
-    multiples of 16 bytes (a stride over a dimension of size 1 is never
-    used)."""
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(n == 1 or st * t.element_size() % 16 == 0
-                    for n, st in zip(t.shape[:-1], t.stride()[:-1])))
 
 
 def launch_plan(q, k, v):
@@ -77,14 +69,6 @@ def prepare(q, k, v):
     route, copy = launch_plan(q, k, v)
     return (route, *(t.clone(memory_format=torch.contiguous_format) if c
                      else t for t, c in zip((q, k, v), copy)))
-
-
-def _strides(t):
-    """t's (batch, head, position) strides, with the stride of a dimension
-    of size 1 replaced by one TMA accepts (it is never multiplied)."""
-    outer = max(st * n for n, st in zip(t.shape, t.stride()) if n > 1)
-    return [st if n > 1 else outer
-            for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
 def _check(q, k, v):

@@ -6,25 +6,31 @@ mixer calls takes and returns) and of ``repro.kernels.ssm_scan.ops.ssd_scan``
 JAX package's custom VJP does with ``jax.vjp``).
 
 ``ssd_scan_kernel`` launches the CUDA kernels of ``csrc/ssd_scan.cu`` for
-tensors on a CUDA device, and runs the plain version of ``ref.py`` for
-tensors on the CPU. There is no other fallback: a CUDA tensor goes through
-the kernel or the call raises. Nothing is padded on the card: the kernel
-reads positions past S as dt = 0 (exact, see ``ref.ssd_scan_reference``).
+tensors on a CUDA device (three passes: chunk states, the state passed
+across chunks, chunk outputs; ``launch_plan`` says what each is given),
+and runs the plain version of ``ref.py`` for tensors on the CPU. There is
+no other fallback: a CUDA tensor goes through the kernels or the call
+raises. Nothing is padded on the card: the kernels read positions past S
+as dt = 0 (exact, see ``ref.ssd_scan_reference``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tma
 from repro_torch.kernels.ssm_scan.ref import ssd_scan_reference
 
 CHUNK = 128                 # the kernel's chunk length
-P_BLOCK = 32                # P is split into blocks of 32 columns
-STATE_SIZES = (16, 32, 64, 128)     # the kernel's instances of N
+P_MULTIPLE = 32             # P must be a multiple of 32
+STATE_SIZES = (16, 32, 64, 128)     # the N the kernels take
 DTYPES = (torch.float32, torch.bfloat16)
+SMS = 132                   # streaming multiprocessors of an H100 SXM
+MAX_HEADS_PER_BLOCK = 16
 _count_lock = threading.Lock()
 
 
@@ -32,9 +38,56 @@ def _library():
     fn = build.load("ssd_scan").ssd_scan_launch
     if fn.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 10 + [i] * 7 + [ll] * 10 + [vp]
+        fn.argtypes = [vp] * 11 + [i] * 10 + [ll] * 10 + [vp]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=256)
+def heads_per_block(chunks: int, H: int, sms: int = SMS) -> int:
+    """Heads one block of pass 1 or 3 takes, for ``chunks`` (batch row,
+    chunk) pairs: the count whose blocks fill the card's waves best, one
+    block an SM, each block paying about one head's work of its own
+    (loading B and C, and C.B^T in pass 3). The smallest such count."""
+    best = None
+    for g in range(1, min(H, MAX_HEADS_PER_BLOCK) + 1):
+        blocks = chunks * -(-H // g)
+        cost = -(-blocks // sms) * (g + 1)
+        if best is None or cost < best[0]:
+            best = (cost, g)
+    return best[1]
+
+
+class Plan(NamedTuple):
+    copy: tuple             # (xh, Bm, Cm): copied first, TMA cannot read it
+    state_chunks: int       # chunks whose state pass 1 computes
+    heads_state: int        # heads a block of pass 1
+    heads_out: int          # heads a block of pass 3
+    states: tuple           # f32 scratch [B, nc, H, P, N]: s_c, then h_in
+    decays: tuple           # f32 scratch [B, nc, H]: exp(cum) at chunk end
+
+
+def launch_plan(xh, Bm, Cm, want_state: bool, sms: int = SMS) -> Plan:
+    """What the kernels are given, from the shapes, strides and base
+    alignment alone. xh, Bm and Cm are read by TMA (``tma.ready``); one
+    that TMA cannot read is copied. The views the Mamba2 mixer passes
+    (slices of its conv output, an s-stride of d_inner + 2N floats) need
+    no copy. The last chunk's state only feeds h_final, so pass 1 skips it
+    unless the state is wanted."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    nc = -(-S // CHUNK)
+    nc1 = nc if want_state else nc - 1
+    return Plan(copy=tuple(not tma.ready(t) for t in (xh, Bm, Cm)),
+                state_chunks=nc1,
+                heads_state=heads_per_block(B * max(nc1, 1), H, sms),
+                heads_out=heads_per_block(B * nc, H, sms),
+                states=(B, nc, H, P, N), decays=(B, nc, H))
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _check(xh, dt, A, Bm, Cm, D, h0):
@@ -72,9 +125,9 @@ def _check_cuda(xh, dt, Bm, Cm, chunk):
     if chunk != CHUNK:
         raise ValueError(f"ssd_scan: the kernel's chunk is {CHUNK}, not "
                          f"{chunk}")
-    if P % P_BLOCK:
+    if P % P_MULTIPLE:
         raise ValueError(f"ssd_scan: head dim P={P} is not a multiple of "
-                         f"{P_BLOCK}")
+                         f"{P_MULTIPLE}")
     if N not in STATE_SIZES:
         raise ValueError(f"ssd_scan: state size N={N} is not one of "
                          f"{STATE_SIZES}")
@@ -90,8 +143,8 @@ def ssd_scan_kernel(xh, dt, A, Bm, Cm, D, chunk: int = CHUNK, h0=None,
     Bm, Cm: [B, S, N]; h0: [B, H, P, N] or None (zeros). Returns y
     [B, S, H, P] in xh's dtype or, with ``h0`` or ``return_state``,
     (y, h_final [B, H, P, N] f32). Any S: the ragged tail is masked.
-    Counts each launch in ``ssd_scan_kernel.launches`` (one a call: the
-    C.B^T pass and the scan it feeds)."""
+    Counts each call in ``ssd_scan_kernel.launches`` (one a call: its
+    three passes feed one another)."""
     _check(xh, dt, A, Bm, Cm, D, h0)
     want_state = h0 is not None or return_state
     if xh.device.type == "cpu":
@@ -107,27 +160,33 @@ def ssd_scan_kernel(xh, dt, A, Bm, Cm, D, chunk: int = CHUNK, h0=None,
             return y
         return y, (torch.zeros((B, H, P, N), dtype=torch.float32, device=dev)
                    if h0 is None else h0.to(torch.float32).clone())
+    plan = launch_plan(xh, Bm, Cm, want_state, _sm_count(dev))
+    # a view TMA cannot read is copied here, not refused (a clone:
+    # .contiguous() would keep a contiguous tensor's misaligned base)
+    xh, Bm, Cm = (t.clone(memory_format=torch.contiguous_format) if c else t
+                  for t, c in zip((xh, Bm, Cm), plan.copy))
     hfin = (torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
             if want_state else None)
-    xh, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous()
-                  for t in (xh, Bm, Cm))
     A, D = (t.to(torch.float32).contiguous() for t in (A, D))
     if h0 is not None:
         h0 = h0.to(torch.float32).contiguous()
-    cb = torch.empty((B, -(-S // CHUNK), CHUNK, CHUNK), dtype=torch.float32,
-                     device=dev)
+        if h0.data_ptr() % 16:          # read four values at a time
+            h0 = h0.clone()
+    states = torch.empty(plan.states, dtype=torch.float32, device=dev)
+    decays = torch.empty(plan.decays, dtype=torch.float32, device=dev)
     launch = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     bf = torch.bfloat16
     rc = launch(xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), D.data_ptr(),
                 None if h0 is None else h0.data_ptr(), y.data_ptr(),
-                None if hfin is None else hfin.data_ptr(), cb.data_ptr(),
-                int(xh.dtype == bf), int(dt.dtype == bf), B, S, H, P, N,
-                *xh.stride()[:3], *dt.stride(), *Bm.stride()[:2],
-                *Cm.stride()[:2], stream)
+                None if hfin is None else hfin.data_ptr(), states.data_ptr(),
+                decays.data_ptr(), int(xh.dtype == bf), int(dt.dtype == bf),
+                B, S, H, P, N, plan.heads_state, plan.heads_out,
+                int(want_state), *tma.strides(xh), *dt.stride(),
+                *tma.strides(Bm, 2), *tma.strides(Cm, 2), stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ssd_scan kernel launch failed: error {rc}")
     with _count_lock:
         ssd_scan_kernel.launches += 1
     return (y, hfin) if want_state else y

@@ -202,3 +202,264 @@ def test_wrapper_raises_on_bad_inputs_and_counts_no_cpu_launch():
     y2, h = ssd_scan_kernel(xh, dt, A, Bm, Cm, D, return_state=True)
     assert torch.equal(y, y2) and tuple(h.shape) == (1, 2, 32, 16)
     assert ssd_scan_kernel.launches == n0
+
+
+# ------------- the CUDA kernels' algorithm, modelled on the CPU -------------
+#
+# csrc/ssd_scan.cu runs the scan as three passes (chunk states, the state
+# passed across chunks, chunk outputs) with every product in 3xTF32 on the
+# tensor cores. It cannot run here, so the passes are written below in
+# plain PyTorch, in the kernels' order, with each operand of a product
+# split into two tf32 values (a 10-bit mantissa, rounded to nearest) and
+# the three products hi.hi + hi.lo + lo.hi summed: this models the
+# operands' rounding only; the tensor cores' own accumulation is measured
+# on the card (chip_smoke.py phase S). Limits are phase S's: 1e-4 max abs,
+# and 1e-5 relative L2 for the model's own dt draw, whose y reaches ~10^2.
+
+from repro_torch.kernels.ssm_scan import ops as ssd_ops  # noqa: E402
+
+Q = ssd_ops.CHUNK
+
+
+def _tf32(a):
+    """a rounded to tf32 (10 mantissa bits, to nearest, ties away from
+    zero: cvt.rna.tf32.f32), kept as f32."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b in 3xTF32: hi.hi + hi.lo + lo.hi, the small terms first."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _three_passes(xh, dt, A, Bm, Cm, D, h0=None):
+    """(y, h_final) as the kernels compute them; positions past S read as
+    zeros, as TMA fills them."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    nc = -(-S // Q)
+    pad = nc * Q - S
+
+    def chunks(a):
+        a = torch.nn.functional.pad(a.float(), (0, 0) * (a.dim() - 2)
+                                    + (0, pad))
+        return a.reshape(B, nc, Q, *a.shape[2:])
+
+    x, d, Bc, Cc = chunks(xh), chunks(dt), chunks(Bm), chunks(Cm)
+    cum = torch.cumsum(d * A, dim=2)                       # [B, nc, Q, H]
+    last = cum[:, :, -1]                                   # [B, nc, H]
+    # pass 1: s_c = (coeff x)^T B, coeff_t = exp(cum_last - cum_t) dt_t
+    coef = torch.exp(last[:, :, None] - cum) * d
+    xc = (coef[..., None] * x).permute(0, 1, 3, 4, 2)      # [B, nc, H, P, Q]
+    states = _mm3(xc, Bc[:, :, None])                      # [B, nc, H, P, N]
+    # pass 2: the state before each chunk
+    h = torch.zeros(B, H, P, N) if h0 is None else h0.float()
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(last[:, c])[..., None, None] * h + states[:, c]
+    h_in = torch.stack(h_in, 1)
+    # pass 3: y = (exp(cum) C) h_in^T + M x + D x, M on and below the
+    # diagonal, exp(seg) never evaluated above it
+    cb = _mm3(Cc, Bc.transpose(-1, -2))                    # [B, nc, Q, Q]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # [B, nc, t, s, H]
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool))[..., None]
+    M = (cb[..., None] * torch.exp(seg.masked_fill(~tri, float("-inf")))
+         * d[:, :, None]).permute(0, 1, 4, 2, 3)           # [B, nc, H, t, s]
+    y1 = _mm3(M, x.permute(0, 1, 3, 2, 4))
+    ec = (torch.exp(cum).permute(0, 1, 3, 2)[..., None]
+          * Cc[:, :, None])                                # [B, nc, H, Q, N]
+    y2 = _mm3(ec, h_in.transpose(-1, -2))
+    y = (y2 + y1).permute(0, 1, 3, 2, 4).reshape(B, nc * Q, H, P)[:, :S]
+    y = y + xh.float() * D[:, None]
+    return y.to(xh.dtype), h
+
+
+def _zamba2_inputs(B, S, H, P, N, seed, draw):
+    """Inputs as phase S draws them: "zamba2" is the model's ranges, A =
+    -linspace(1, 16, H) (its A_log init) and dt log-uniform in [0.001,
+    0.1] (its dt_bias range); "model" is what the mixer hands the scan at
+    random weights, dt = softplus(n + dt_bias), under which y reaches
+    ~10^2. Returned as numpy, for both packages."""
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    xh, Bm, Cm = n(B, S, H, P), n(B, S, N), n(B, S, N)
+    A = -np.linspace(1.0, 16.0, H).astype(np.float32)
+    lo, hi = np.log(0.001), np.log(0.1)
+    if draw == "zamba2":
+        dt = np.exp(rng.uniform(size=(B, S, H)) * (hi - lo) + lo)
+    else:
+        u = rng.uniform(size=H)
+        dt_bias = np.log(np.expm1(np.exp(u * (hi - lo) + lo)))
+        dt = _softplus(n(B, S, H) + dt_bias.astype(np.float32))
+    return [a.astype(np.float32) for a in
+            (xh, dt, A, Bm, Cm, np.ones(H, np.float32))]
+
+
+def _jax_chunked(ins, h0):
+    """The JAX package's ``ssd_chunked`` (chunk 128) on inputs padded with
+    zeros to a chunk multiple (dt = 0 there: exact), y cut back to S."""
+    S = ins[0].shape[1]
+    pad = -S % Q
+    padded = [np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+              if a.ndim > 1 else a for a in ins]
+    y, h = jax_ssd_chunked(*map(jnp.asarray, padded), chunk=Q,
+                           h0=None if h0 is None else jnp.asarray(h0))
+    return np.asarray(y)[:, :S], np.asarray(h)
+
+
+@pytest.mark.parametrize("draw", ["jax", "zamba2", "model"])
+@pytest.mark.parametrize("S,with_h0", [(256, False), (300, True)])
+def test_three_passes_in_3xtf32_match_jax_and_the_plain_version(
+        draw, S, with_h0):
+    """The kernels' passes and operand rounding at zamba2's P=64, N=64
+    (fewer heads and rows), a ragged S with h0 and h_final, against the
+    JAX package's ``ssd_chunked`` and the port's plain version."""
+    B, H, P, N = 2, 3, 64, 64
+    if draw == "jax":
+        jins, tins = _inputs(B, S, H, P, N, 20 + S)
+        ins = [np.asarray(a, np.float32) for a in jins]
+    else:
+        ins = _zamba2_inputs(B, S, H, P, N, 20 + S, draw)
+        tins = [torch.from_numpy(a) for a in ins]
+    h0 = (0.5 * np.random.default_rng(S).standard_normal((B, H, P, N))
+          .astype(np.float32) if with_h0 else None)
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    y, h = _three_passes(*tins, h0=th0)
+    want_y, want_h = _jax_chunked(ins, h0)
+    plain_y, plain_h = ssd_scan_reference(*tins, h0=th0, return_state=True)
+    if draw == "model":
+        assert np.abs(want_y).max() > 10          # y is large here
+        for got, want in ((y, want_y), (y, plain_y), (h, want_h)):
+            g, w = _f32(got).astype(np.float64), _f32(want).astype(np.float64)
+            assert np.linalg.norm(g - w) / np.linalg.norm(w) <= 1e-5
+    else:
+        for got, want in ((y, want_y), (y, plain_y), (h, want_h),
+                          (h, plain_h)):
+            np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-4)
+
+
+def test_three_passes_round_bf16_outputs_from_their_f32_values():
+    """bf16 xh: y is the f32 result rounded once, so it is within half a
+    bf16 spacing (plus the f32 limit) of the plain f32 result."""
+    ins = _zamba2_inputs(1, 200, 2, 64, 64, 31, "zamba2")
+    tins = [torch.from_numpy(a) for a in ins]
+    tins[0] = tins[0].to(torch.bfloat16)
+    y, _ = _three_passes(*tins)
+    assert y.dtype == torch.bfloat16
+    want = ssd_scan_reference(tins[0].float(), *tins[1:])
+    half = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 9)
+    assert ((y.float() - want).abs() - half).max() <= 1e-4
+
+
+def test_tf32_rounding_model():
+    """The split is exact (hi + lo recovers a to ~2^-22 of it) and hi keeps
+    10 mantissa bits, rounded to nearest."""
+    a = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -12,
+                      -3.0000001, 1e-3, 123.456])
+    hi = _tf32(a)
+    assert hi[0] == 1.0 + 2.0 ** -10           # the tie rounds away
+    assert hi[1] == 1.0 + 2.0 ** -10
+    assert (hi.view(torch.int32) & 0x1FFF == 0).all()
+    lo = _tf32(a - hi)
+    assert ((hi + lo - a).abs() <= a.abs() * 2.0 ** -21).all()
+
+
+# --------------------------- the launch plan --------------------------------
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+def _mixer_views(B, S, H, N, dtype):
+    """xh, Bm, Cm as ``mamba2._ssm_inputs`` hands them to the scan: slices
+    of one conv output [B, S, H*64 + 2N], each ``.to(f32)`` (a no-op on
+    an f32 forward, a contiguous copy on a bf16 one)."""
+    conv = torch.zeros(B, S, H * 64 + 2 * N, dtype=dtype)
+    xi, Bm, Cm = torch.split(conv, [H * 64, N, N], dim=-1)
+    return (xi.reshape(B, S, H, 64).to(F32), Bm.to(F32), Cm.to(F32))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("H,N", [(112, 64), (8, 16), (4, 128)])
+def test_launch_plan_copies_nothing_the_mixer_passes(dtype, H, N):
+    xh, Bm, Cm = _mixer_views(2, 300, H, N, dtype)
+    if dtype == F32:             # zamba2's: an s-stride of 7,296 floats
+        assert xh.stride(1) == H * 64 + 2 * N and not xh.is_contiguous()
+    plan = ssd_ops.launch_plan(xh, Bm, Cm, want_state=False)
+    assert plan.copy == (False, False, False)
+
+
+def test_launch_plan_copies_what_tma_cannot_read():
+    xh, Bm, Cm = (torch.zeros(2, 64, 4, 64), torch.zeros(2, 64, 16),
+                  torch.zeros(2, 64, 16))
+    plan = ssd_ops.launch_plan
+    assert plan(xh, Bm, Cm, False).copy == (False, False, False)
+    # a base 4 bytes off 16-byte alignment
+    odd = torch.zeros(1 + xh.numel())[1:].view(xh.shape)
+    assert plan(odd, Bm, Cm, False).copy == (True, False, False)
+    # an s-stride of 18 floats (72 B) in f32; of 24 bf16 (48 B) it is one
+    wide = torch.zeros(2, 64, 18)[..., :16]
+    assert plan(xh, wide, Cm, False).copy == (False, True, False)
+    assert plan(xh, Bm, wide.to(BF16)[..., :16].contiguous()[:, :, :16],
+                False).copy == (False, False, False)
+    wide_bf = torch.zeros(2, 64, 24, dtype=BF16)[..., :16]
+    assert plan(xh, Bm, wide_bf, False).copy == (False, False, False)
+    # a head stride of 66 floats: no multiple of 16 bytes
+    heads = torch.zeros(2, 64, 4, 66)[..., :64]
+    assert plan(heads, Bm, Cm, False).copy == (True, False, False)
+    # a last axis that is not contiguous
+    step = torch.zeros(2, 64, 32)[..., ::2]
+    assert plan(xh, Bm, step, False).copy == (False, False, True)
+    # a stride over a dimension of size 1 is never used ...
+    one = torch.zeros(1, 64, 16).as_strided((1, 64, 16), (3, 16, 1))
+    assert plan(xh[:1], one, one, False).copy == (False, False, False)
+    # ... and the kernel is handed one TMA takes in its place
+    assert ssd_ops.tma.strides(one, 2)[0] * 4 % 16 == 0
+
+
+@pytest.mark.parametrize("B,S,want_state,heads_state,heads_out", [
+    (4, 2048, False, 9, 14), (1, 2048, False, 14, 14),
+    (4, 512, True, 14, 14), (4, 1000, False, 8, 14), (1, 32, False, 1, 1)])
+def test_launch_plan_scratch_and_heads_per_block(B, S, want_state,
+                                                 heads_state, heads_out):
+    """Phase S's shapes at zamba2's H=112, P=64, N=64: the f32 state
+    scratch [B, nc, H, P, N] (117 MB at B=4, S=2048), the chunks pass 1
+    computes (the last only for h_final), and the heads each block takes,
+    which fill the card's 132 SMs in whole waves as far as they can."""
+    xh, Bm, Cm = _mixer_views(B, S, 112, 64, F32)
+    plan = ssd_ops.launch_plan(xh, Bm, Cm, want_state)
+    nc = -(-S // 128)
+    assert plan.states == (B, nc, 112, 64, 64)
+    assert plan.decays == (B, nc, 112)
+    assert plan.state_chunks == (nc if want_state else nc - 1)
+    assert (plan.heads_state, plan.heads_out) == (heads_state, heads_out)
+    if (B, S) == (4, 2048):
+        assert 4 * np.prod(plan.states) == 117_440_512
+    blocks = B * nc * -(-112 // plan.heads_out)
+    assert blocks <= 132 or blocks / (-(-blocks // 132) * 132) > 0.9
+
+
+def test_model_mixers_hand_the_scan_views_it_reads_in_place(monkeypatch):
+    """The tensors ``mamba2_mixer`` and ``mamba2_mixer_chunk`` hand the
+    scan in the f32 forward, recorded on their way in, and the plan made
+    for them: no copy."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2 as m2
+    cfg = get_config("zamba2-7b").reduced(num_layers=2)
+    p = m2.init_mamba2(torch.Generator().manual_seed(0), cfg)
+    plans = []
+
+    def record(xh, dt, A, Bm, Cm, D, **kw):
+        plans.append(ssd_ops.launch_plan(xh, Bm, Cm, "h0" in kw))
+        return ssd_scan(xh, dt, A, Bm, Cm, D, **kw)
+
+    monkeypatch.setattr(m2, "ssd_scan", record)
+    x = torch.randn(2, 24, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    m2.mamba2_mixer(p, x, cfg=cfg, dtype=torch.float32)
+    cache = m2.init_mamba2_cache(cfg, 2)
+    m2.mamba2_mixer_chunk(p, x[:, :8], cache, cfg=cfg, dtype=torch.float32)
+    assert [pl.copy for pl in plans] == [(False, False, False)] * 2
