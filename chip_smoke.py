@@ -39,17 +39,20 @@ Phases, each fatal on failure (exit code 1, no result line):
      qwen2-1.5b's heads (H=12, Hkv=2, dh=128), B=4: S=2048 causal,
      S=1000 ragged causal, S=2048 with a 256 window, S=1000 non-causal,
      a 512-row chunk at q_offset 1536 over 2048 keys, and at zamba2-7b's
-     heads (H=Hkv=32, dh=112) B=4, S=2048 causal, each in f32, bf16 and
-     bf16 q over f32 k/v; and dh=32, 64 at small sizes; then on the
-     strided views the model passes: q, k, v as ``[B, S, heads,
-     dh].transpose(1, 2)`` (qwen2's and zamba2's S=2048 causal), and the
-     512-row chunk at q_offset 1536 over a slice of a ``[B, 2056, Hkv,
-     dh]`` cache, in bf16, f32 (and bf16 q over the f32 cache), and a
-     bf16 q whose base TMA cannot take (copied by the wrapper). Each case
-     is held to its route (1, wgmma + TMA, for bf16 q over bf16 k/v; 2,
-     CUDA cores, otherwise) by the wrapper's per-route counts. Limits are
-     the JAX package's own, 5e-5 max abs in f32 and 2e-2 in bf16, and in
-     bf16 also 1e-2 relative L2 over the whole output;
+     heads (H=Hkv=32, dh=112) B=4, S=2048 causal and B=1, S=32 causal
+     (fewer rows than a block), each in f32, bf16 and bf16 q over f32
+     k/v; and dh=32, 64 at small sizes in those and f32 q over bf16 k/v;
+     then on the strided views the model passes: q, k, v as ``[B, S,
+     heads, dh].transpose(1, 2)`` (qwen2's and zamba2's S=2048 causal),
+     the 512-row chunk at q_offset 1536 over a slice of a ``[B, 2056,
+     Hkv, dh]`` cache, and zamba2's 32 rows at q_offset 8 over a 40-row
+     slice of a 48-row cache, in bf16, f32 (and bf16 q over the f32
+     cache), and a bf16 and an f32 q whose base TMA cannot take (copied
+     by the wrapper). Each case is held to its route (1, bf16 wgmma, for
+     bf16 q over bf16 k/v; 2, 3xTF32 wgmma, otherwise; both fed by TMA)
+     by the wrapper's per-route counts. Limits are the JAX package's own,
+     5e-5 max abs in f32 and 2e-2 in bf16, and in bf16 also 1e-2
+     relative L2 over the whole output;
   S. hold the SSD scan (K5) against its plain version on the card at
      zamba2-7b's H=112, P=64, N=64: B=4 and B=1 at S=2048, a ragged
      S=1000, a 512-step chunk continuing from a carried state (y and
@@ -96,8 +99,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      query offset's boolean mask where it has them, and held against the
      plain version first; yardsticks the port never calls; no single
      PyTorch call computes K2, K3 or K5). K4 is timed in bf16 (route 1)
-     at every phase-A shape, and in f32 (route 2) at the top shape beside
-     the library call in f32 with TF32 off.
+     at every phase-A shape, and in f32 (route 2) at the five shapes the
+     serving paths launch it at (qwen2's top shape and its 512-row chunk
+     at q_offset 1536, zamba2's top shape, its last 512-row chunk over the
+     2,056-row cache, and its B=1, S=32 prefill) beside the library call
+     in f32 with TF32 off, each beside its f32 (CUDA-core) and 3xTF32
+     (tensor-core) bound.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit (``nvidia-smi``), and
@@ -623,6 +630,22 @@ def flash_shapes():
     return big, small
 
 
+# zamba2-7b's B=1, 32-token prefill (phase Z (iii)): fewer rows than a block
+ZAMBA2_SHORT = (1, 32, 32, 32, 32, 112, True, 0, 0)
+
+
+def route2_shapes():
+    """The shapes the serving paths launch route 2 (f32) at: qwen2's
+    prefill and its last 512-row chunk (q_offset 1536, over 2048 keys),
+    zamba2's prefill, its last chunk (over the 2,056-row cache that
+    ``chunk_attention`` hands the kernel whole), and its B=1, S=32
+    prefill."""
+    big = flash_shapes()[0]
+    return [big[0], big[4], big[5],
+            (4, 32, 32, 512, PREFILL_S + DECODE_STEPS, 112, True, 0, 1536),
+            ZAMBA2_SHORT]
+
+
 def describe(shape):
     B, H, Hkv, Sq, Skv, dh, causal, window, off = shape
     return (f"B={B} H={H} Hkv={Hkv} Sq={Sq} Skv={Skv} dh={dh} "
@@ -634,8 +657,9 @@ def flash_inputs(shape, dq, dkv, seed, torch, view="contiguous"):
     ``view="model"``, ``[B, S, heads, dh].transpose(1, 2)`` as
     ``attention()`` passes them; or with ``view="cache"``, k and v as a
     slice of a ``[B, Skv + 8, Hkv, dh]`` cache, as ``chunk_attention()``
-    passes them; or with ``view="unaligned"``, q contiguous at 2 bytes
-    past a 16-byte boundary (route 1's wrapper copies it first)."""
+    passes them; or with ``view="unaligned"``, q contiguous one element
+    past a 16-byte boundary (the wrapper copies it first: TMA needs a
+    16-byte aligned base)."""
     B, H, Hkv, Sq, Skv, dh = shape[:6]
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -671,13 +695,19 @@ def flash_phase(torch, fops, fref):
     L2 error, each by q's dtype."""
     f32, bf16 = torch.float32, torch.bfloat16
     types = {"f32": (f32, f32), "bf16": (bf16, bf16),
-             "bf16 q over f32 kv": (bf16, f32)}
+             "bf16 q over f32 kv": (bf16, f32),
+             "f32 q over bf16 kv": (f32, bf16)}
+    served = ("f32", "bf16", "bf16 q over f32 kv")    # the serving paths'
     big, small = flash_shapes()
-    cases = [(sh, t, "contiguous") for sh in big for t in types]
-    cases += [(sh, t, "contiguous") for sh in small for t in ("f32", "bf16")]
+    cases = [(sh, t, "contiguous") for sh in big + [ZAMBA2_SHORT]
+             for t in served]
+    cases += [(sh, t, "contiguous") for sh in small for t in types]
     cases += [(big[i], t, "model") for i in (0, 5) for t in ("bf16", "f32")]
-    cases += [(big[4], t, "cache") for t in types]
-    cases += [(big[0], "bf16", "unaligned")]
+    # the q_offset chunk over a slice of the cache: qwen2's 512 rows over
+    # 2048 of 2056, zamba2's 32 rows at q_offset 8 over 40 of 48
+    cases += [(sh, t, "cache") for sh in
+              (big[4], (1, 32, 32, 32, 40, 112, True, 0, 8)) for t in served]
+    cases += [(big[0], t, "unaligned") for t in ("bf16", "f32")]
     errs = {"float32": 0.0, "bfloat16": 0.0}
     rels = dict(errs)
     K = fops.flash_attention_kernel
@@ -730,7 +760,8 @@ def visited_pairs(Sq, Skv, off, causal, window):
 
 def flash_timings(shape, torch, fops, fref, dtype="bfloat16"):
     """K4 at one shape, in bf16 (route 1) or f32 (route 2): device time
-    beside its bound, the plain version's and
+    beside its bound (in f32 the CUDA cores' and, as ``bound_ms_3xtf32``,
+    the tensor cores' for three tf32 products), the plain version's and
     ``scaled_dot_product_attention``'s (``is_causal`` where the causal
     mask is its top-left one; else the boolean mask of the window and the
     query offset, built before the timing; in f32 with TF32 off, as
@@ -745,6 +776,8 @@ def flash_timings(shape, torch, fops, fref, dtype="bfloat16"):
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     peak = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    # route 2 as it runs: three tf32 products for each f32 one
+    t_tf32 = 3 * flops / TF32_FLOPS_PER_S
     if window or off or Sq != Skv:
         qpos = off + torch.arange(Sq, device="cuda")[:, None]
         kpos = torch.arange(Skv, device="cuda")[None, :]
@@ -782,6 +815,10 @@ def flash_timings(shape, torch, fops, fref, dtype="bfloat16"):
                 q, k, v, causal=causal, window=window, q_offset=off), torch),
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            **({} if dtype == "bfloat16" else {
+                "bound_ms_3xtf32": 1e3 * max(t_tf32, t_bytes),
+                "bound_by_3xtf32": ("operations" if t_tf32 >= t_bytes
+                                    else "bytes")}),
             "library_ms": time_ms(lib, torch),
             "library_max_abs_err": lib_err}
 
@@ -932,7 +969,9 @@ def transformer_phase(torch, fops):
 
     with torch.no_grad():
         # ---- (i) prefill: K4 against the plain attention path ----------
+        t0 = time.perf_counter()
         flash, n, r1_f32 = forward(cfg32, prompt)
+        prefill32_s = time.perf_counter() - t0
         plain, n0, _ = forward(cfg32.with_overrides(use_flash_attention=0),
                                prompt)
         check(n == n_slots and n0 == 0 and r1_f32 == 0,
@@ -940,7 +979,8 @@ def transformer_phase(torch, fops):
               f"1), {n0} without")
         err = (flash - plain).abs().max().item()
         log(f"(i) f32 prefill B={PREFILL_B} S={PREFILL_S}: max |logit "
-            f"flash - plain| {err:.3g}; K4 launches {n}")
+            f"flash - plain| {err:.3g}; K4 launches {n}; "
+            f"{prefill32_s * 1e3:.1f} ms (the phase's first forward)")
         check(bool(torch.isfinite(flash).all()), "non-finite f32 logits")
         check(err <= 1e-3, f"f32 prefill logits differ by {err} (> 1e-3)")
         del flash, plain
@@ -961,6 +1001,7 @@ def transformer_phase(torch, fops):
         check(bool(torch.isfinite(flash).all()), "non-finite bf16 logits")
         check(rel <= 2e-2, f"bf16 prefill rel L2 {rel} (> 2e-2)")
         summary.update(prefill_f32_max_abs_diff=err,
+                       prefill_f32_ms=prefill32_s * 1e3,
                        k4_launches_prefill_f32=n, prefill_bf16_rel_l2=rel,
                        prefill_bf16_top1_agreement=top1,
                        prefill_bf16_ms=prefill_s * 1e3,
@@ -1424,7 +1465,9 @@ def hybrid_phase(torch, fops, sops):
 
     with torch.no_grad():
         # ---- (i) prefill: K4 and K5 against their plain versions --------
+        t0 = time.perf_counter()
         kern, n4, n5 = forward(cfg32, prompt)
+        prefill32_s = time.perf_counter() - t0
         r1_f32 = route1["last"]
         plain, p4, p5 = plain_forward(cfg32, prompt)
         check((n4, n5, p4, p5, r1_f32) == (n_hybrid, n_slots, 0, 0, 0),
@@ -1432,7 +1475,8 @@ def hybrid_phase(torch, fops, sops):
               f"kernels (K4 {r1_f32} on route 1), {p4}, {p5} without")
         err = (kern - plain).abs().max().item()
         log(f"(i) f32 prefill B={PREFILL_B} S={PREFILL_S}: max |logit "
-            f"kernels - plain| {err:.3g}; K4, K5 launches {n4}, {n5}")
+            f"kernels - plain| {err:.3g}; K4, K5 launches {n4}, {n5}; "
+            f"{prefill32_s * 1e3:.1f} ms (the phase's first forward)")
         check(bool(torch.isfinite(kern).all()), "non-finite f32 logits")
         check(err <= 1e-3, f"f32 prefill logits differ by {err} (> 1e-3)")
         kern32 = kern
@@ -1478,7 +1522,9 @@ def hybrid_phase(torch, fops, sops):
               f"the plain slot's (rel L2 > 2e-2)")
         check(rel <= rel_f32, f"bf16 prefill rel L2 {rel} from the plain "
               f"forward, above the f32 forward's {rel_f32}")
-        summary.update(prefill_f32_max_abs_diff=err, prefill_bf16_rel_l2=rel,
+        summary.update(prefill_f32_max_abs_diff=err,
+                       prefill_f32_ms=prefill32_s * 1e3,
+                       prefill_bf16_rel_l2=rel,
                        prefill_bf16_top1_agreement=top1,
                        prefill_bf16_rel_l2_vs_f32=rel_f32,
                        prefill_bf16_rel_l2_plain_scan_only=rel_k5,
@@ -1633,6 +1679,13 @@ def main():
             f"{'bf16' if xb else 'f32'}/{'bf16' if sb else 'f32'} "
             f"{smem(64, xb, sb, 1)}, {smem(64, xb, sb, 3)} B"
             for xb in (0, 1) for sb in (0, 1)))
+    smem = build.load("flash_attention").flash_attention_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_int
+    log(f"  K4 route 2 dynamic shared memory (q/kv f32 or bf16) at dh=112, "
+        f"128: " + ", ".join(
+            f"{'bf16' if qb else 'f32'}/{'bf16' if kb else 'f32'} "
+            f"{smem(112, qb, kb)}, {smem(128, qb, kb)} B"
+            for qb, kb in ((0, 0), (1, 0), (0, 1))))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.runtime.workload import WorkloadSpec
@@ -1714,16 +1767,17 @@ def main():
             "library_note": no_library, "per_shape": list(times)})
     k4_times = [flash_timings(sh, torch, fops, fref)
                 for sh in flash_shapes()[0]]
-    k4_f32 = flash_timings(flash_shapes()[0][0], torch, fops, fref,
-                           "float32")
-    # route 2 at the chunked-prefill shape and at zamba2-7b's
-    k4_f32_more = [flash_timings(flash_shapes()[0][i], torch, fops, fref,
-                                 "float32") for i in (4, 5)]
+    # route 2 at qwen2's top shape, then the serving paths' other shapes
+    k4_f32, *k4_f32_more = [flash_timings(sh, torch, fops, fref, "float32")
+                            for sh in route2_shapes()]
     log(f"K4 route 1 at qwen2's top shape (bf16): {k4_times[0]['ms']:.4f} "
         f"ms (0.1627-0.1652 ms in PR 16's runs on an H100 at 700 W); route "
-        f"2 (f32): " + ", ".join(f"{t['ms']:.4f} ms at Sq={t['Sq']} "
-                                f"Skv={t['Skv']} dh={t['dh']}"
-                                for t in (k4_f32, *k4_f32_more)))
+        f"2 (f32): " + ", ".join(
+            f"{t['ms']:.4f} ms (bounds {t['bound_ms']:.4f} f32, "
+            f"{t['bound_ms_3xtf32']:.4f} 3xTF32; SDPA "
+            f"{t['library_ms']:.4f}) at B={t['B']} H={t['H']} Sq={t['Sq']} "
+            f"Skv={t['Skv']} dh={t['dh']} q_offset={t['q_offset']}"
+            for t in (k4_f32, *k4_f32_more)))
     z_runs = ("prefill_f32", "prefill_bf16", "chunked_prefill", "decode",
               "decode_check", "serving")
     by_run = {"prefill_f32": t_run["k4_launches_prefill_f32"],

@@ -9,7 +9,7 @@
 // skipped when wholly past the causal frontier or outside the window
 // (kernel.py:40-44), f32 scores and accumulators, l clamped at 1e-30
 // (kernel.py:71). f32 inputs, and bf16 q over an f32 kv cache, take route
-// 2 (csrc/flash_attention.cu, f32 on the CUDA cores).
+// 2 (csrc/flash_attention.cu, 3xTF32 on the tensor cores).
 //
 // Layout: q [B, H, Sq, dh], k and v [B, Hkv, Skv, dh], each with any
 // strides over (b, head, position) that are multiples of 16 bytes, a
@@ -89,15 +89,6 @@ __device__ __forceinline__ void tile_range(int qlo, int qhi, int Skv,
     const int first = qlo - window + 1;      // lowest key row qlo may see
     lo = first > 0 ? first / BK : 0;
   }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 template <int N>

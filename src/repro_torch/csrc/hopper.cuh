@@ -1,12 +1,14 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the port's
 // kernels that run on the tensor cores (csrc/flash_attention_sm90.cu,
-// csrc/ssd_scan.cu): shared-memory addresses, mbarriers (a wait that
-// never completes traps after 10 s), TMA tile loads, the 128-byte swizzle
-// of a shared-memory tile and its wgmma descriptor, the wgmma products in
-// bf16 and tf32 with their fences, commit and wait, named barriers,
-// setmaxnreg, and the tensor-map encoder from the runtime's driver entry
-// point (no -lcuda at link time). Each source compiles to its own
-// library, so everything here has internal linkage.
+// csrc/flash_attention.cu, csrc/ssd_scan.cu): shared-memory addresses,
+// mbarriers (a wait that never completes traps after 10 s), TMA tile
+// loads, the 128-byte swizzle of a shared-memory tile and its wgmma
+// descriptor, the wgmma products in bf16 and tf32 with their fences,
+// commit and wait, named barriers, setmaxnreg, the tf32 hi/lo split of a
+// 3xTF32 product, the reductions over the four threads of an accumulator
+// row, and the tensor-map encoder from the runtime's driver entry point
+// (no -lcuda at link time). Each source compiles to its own library, so
+// everything here has internal linkage.
 #pragma once
 
 #include <cuda.h>            // CUtensorMap (the type only; no -lcuda)
@@ -276,6 +278,56 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// element (row, col) of a 128-byte-swizzled tile of `rows` rows, read in
+// its own type
+template <typename T>
+__device__ __forceinline__ float raw_at(const unsigned char* tile, int row,
+                                        int col, int rows) {
+  return to_f32(*reinterpret_cast<const T*>(
+      tile + sw128_off(row, col * (int)sizeof(T), rows)));
+}
+
+// four f32 as 16 bytes of a tf32 hi tile and of its lo tile
+__device__ __forceinline__ void put4(unsigned char* hi, unsigned char* lo,
+                                     uint32_t off, float a, float b, float c,
+                                     float d) {
+  uint4 h, l;
+  tf32_split(a, h.x, l.x);
+  tf32_split(b, h.y, l.y);
+  tf32_split(c, h.z, l.z);
+  tf32_split(d, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi + off) = h;
+  *reinterpret_cast<uint4*>(lo + off) = l;
+}
+
+// the wgmma descriptor of k-step `k` (8 tf32 columns) of a K-major operand
+// tile of `rows` rows in 128-byte swizzle atoms (32 columns a chunk)
+__device__ __forceinline__ uint64_t kstep_desc(const unsigned char* tile,
+                                               int k, int rows) {
+  return desc_sw128(smem_addr(tile) + (k / 4) * rows * 128 + (k % 4) * 32, 16,
+                    1024);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// max and sum over the four threads of a quad, which hold one accumulator
+// row between them
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // The products, f32 += tf32 x tf32 on 64 rows of a warpgroup, A from
 // registers, B from shared memory, both K-major (the only layout wgmma
 // takes in tf32): D[64 x NN] += A[64 x 8] . B[8 x NN]. The A fragment:
@@ -350,6 +402,52 @@ __device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64],
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// N = 112: the output columns of zamba2-7b's attention heads
+template <>
+__device__ __forceinline__ void wgmma_tf32<112>(float (&d)[56],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// D[64 x 32] (+)= A[64 x 8] . B[8 x 32] in tf32, A and B from shared
+// memory, both K-major (descriptors as kstep_desc makes them); D is
+// overwritten where `accumulate` is 0, so no instruction need zero it
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // ---- tensor maps (host) ---------------------------------------------------

@@ -101,45 +101,10 @@ constexpr int BAR_WG = 2;           // + warpgroup: one warpgroup's 128
 constexpr int PASS2_THREADS = 256;
 constexpr int SETS = 2;             // pass 3: fragment sets, groups in flight
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 __host__ __device__ constexpr int row_bytes(int cols, int esize) {
   return (cols * esize + 127) / 128 * 128;
 }
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-// element (row, col) of a 128-byte-swizzled tile of `rows` rows, read in
-// its own type
-template <typename T>
-__device__ __forceinline__ float raw_at(const unsigned char* tile, int row,
-                                        int col, int rows) {
-  return to_f32(*reinterpret_cast<const T*>(
-      tile + sw128_off(row, col * (int)sizeof(T), rows)));
-}
-
-// four f32 as 16 bytes of a tf32 hi tile and of its lo tile
-__device__ __forceinline__ void put4(unsigned char* hi, unsigned char* lo,
-                                     uint32_t off, float a, float b, float c,
-                                     float d) {
-  uint4 h, l;
-  tf32_split(a, h.x, l.x);
-  tf32_split(b, h.y, l.y);
-  tf32_split(c, h.z, l.z);
-  tf32_split(d, h.w, l.w);
-  *reinterpret_cast<uint4*>(hi + off) = h;
-  *reinterpret_cast<uint4*>(lo + off) = l;
-}
-
-// the wgmma descriptor of k-step `k` (8 tf32 columns) of a K-major operand
-// tile of `rows` rows in 128-byte swizzle atoms (32 columns a chunk)
-__device__ __forceinline__ uint64_t kstep_desc(const unsigned char* tile,
-                                               int k, int rows) {
-  return desc_sw128(smem_addr(tile) + (k / 4) * rows * 128 + (k % 4) * 32, 16,
-                    1024);
-}
 
 // This lane's four steps of a chunk's dt in f32 (steps 4 lane .. 4 lane +
 // 3); steps at or past `valid` read 0. Issued a head ahead of their use.
@@ -233,10 +198,6 @@ struct OutGeo {
   static constexpr int BYTES = 1024 + OFF_BAR + 8 * (2 + 2 * STAGES);
   static_assert(BYTES <= MAX_SMEM, "above the opt-in shared memory limit");
 };
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
-}
 
 // ---- pass 1: chunk states ------------------------------------------------
 

@@ -12,11 +12,14 @@ Two kernels, chosen by dtype alone (``launch_plan``):
 - route 1, bf16 q over bf16 k and v (the serving path's dtype):
   ``csrc/flash_attention_sm90.cu``, wgmma on the tensor cores fed by TMA;
 - route 2, f32 q, and bf16 q over an f32 kv cache:
-  ``csrc/flash_attention.cu``, f32 on the CUDA cores.
+  ``csrc/flash_attention.cu``, 3xTF32 products (each f32 operand split
+  into two tf32 terms) by wgmma on the tensor cores, fed by TMA.
 
 Each pair has exactly one kernel and there is no other fallback: a CUDA
-tensor goes through its route's kernel or the call raises. Nothing is
-padded: both kernels mask the true sequence edges.
+tensor goes through its route's kernel or the call raises. Both kernels
+load through TMA tensor maps over the caller's strides; the wrapper copies
+only a tensor whose base or strides TMA cannot take. Nothing is padded:
+both kernels mask the true sequence edges.
 """
 from __future__ import annotations
 
@@ -51,14 +54,14 @@ def _library(route: int):
 def launch_plan(q, k, v):
     """(route, which of q, k, v to copy first), from the dtypes, shapes,
     strides and base alignment alone. Route 1 for bf16 q over bf16 k and
-    v, route 2 otherwise. Route 2 needs only a contiguous last axis; route
-    1 also what TMA needs (``_tma_ready``). A view the model passes
-    (``[B, S, H, dh].transpose(1, 2)``, or such a view over a slice of the
-    KV cache) needs no copy."""
+    v, route 2 otherwise. Both routes load through TMA, so a tensor is
+    copied unless it has what TMA needs (``_tma_ready``: a contiguous last
+    axis, a 16-byte aligned base, strides of multiples of 16 bytes). A
+    view the model passes (``[B, S, H, dh].transpose(1, 2)``, or such a
+    view over a slice of the KV cache) needs no copy."""
     bf = torch.bfloat16
     route = 1 if q.dtype == k.dtype == v.dtype == bf else 2
-    ready = _tma_ready if route == 1 else (lambda t: t.stride(-1) == 1)
-    return route, tuple(not ready(t) for t in (q, k, v))
+    return route, tuple(not _tma_ready(t) for t in (q, k, v))
 
 
 def prepare(q, k, v):
@@ -142,7 +145,7 @@ def flash_attention_kernel(q, k, v, q_offset=None, *, causal: bool = True,
     return out
 
 
-# launches in all, and by route (route 1: wgmma, route 2: CUDA cores)
+# launches in all, and by route (route 1: bf16 wgmma, route 2: 3xTF32 wgmma)
 flash_attention_kernel.launches = 0
 flash_attention_kernel.launches_route1 = 0
 flash_attention_kernel.launches_route2 = 0

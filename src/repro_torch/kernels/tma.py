@@ -1,5 +1,5 @@
 """What the port's TMA tensor maps need of a tensor, shared by the
-wrappers of the kernels that load through them (route 1 of flash
+wrappers of the kernels that load through them (both routes of flash
 attention, the SSD scan)."""
 from __future__ import annotations
 

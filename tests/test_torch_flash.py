@@ -213,17 +213,26 @@ def test_launch_plan_routes_by_dtype_and_copies_nothing_the_model_passes(
     assert launch_plan(q, k, v) == (route, (False, False, False))
 
 
-@pytest.mark.parametrize("dt,route", [((BF16, BF16), 1), ((F32, F32), 2)])
+@pytest.mark.parametrize("dt,route", [((BF16, BF16), 1), ((F32, F32), 2),
+                                      ((BF16, F32), 2)])
 def test_launch_plan_copies_what_the_kernel_cannot_read(dt, route):
+    """Both routes load through TMA: a base off 16-byte alignment or a
+    stride that is no multiple of 16 bytes is copied first."""
     dq, dkv = dt
     q, k, v = _views("model", dt, 64)
-    # a base 2 bytes off 16-byte alignment: TMA (route 1) needs a copy
+    # a base one element off 16-byte alignment (2 bytes in bf16, 4 in f32)
     odd = torch.zeros(1 + q.numel(), dtype=dq)[1:].view(q.shape)
-    assert launch_plan(odd, k, v) == (route, (route == 1, False, False))
+    assert launch_plan(odd, k, v) == (route, (True, False, False))
     # rows of 64 + 4 elements: a head stride that is no multiple of 16 B
     # in bf16 (136 B); 272 B in f32 is one
     wide = torch.zeros(2, 4, 48, 68, dtype=dq)[..., :64]
-    assert launch_plan(wide, k, v) == (route, (route == 1, False, False))
+    assert launch_plan(wide, k, v) == (route, (dq == BF16, False, False))
+    # rows of 64 + 2 elements: 132 B in bf16, 264 B in f32, neither one
+    narrow = torch.zeros(2, 4, 48, 66, dtype=dq)[..., :64]
+    assert launch_plan(narrow, k, v) == (route, (True, False, False))
+    # the same of the kv cache: an f32 slice at an odd stride is copied
+    cache = torch.zeros(2, 2, 56, 66, dtype=dkv)[..., :64]
+    assert launch_plan(q, cache[:, :, :48], v) == (route, (False, True, False))
     # a last axis that is not contiguous: every route copies
     step = torch.zeros(2, 2, 48, 128, dtype=dkv)[..., ::2]
     assert launch_plan(q, step, v) == (route, (False, True, False))
@@ -235,7 +244,8 @@ def test_launch_plan_copies_what_the_kernel_cannot_read(dt, route):
     # ... and the kernel is handed one TMA takes in its place
     assert _strides(one)[0] * one.element_size() % 16 == 0
     # what is copied comes out readable, with the same values
-    for args in ((odd, k, v), (wide, k, v), (q, step, v)):
+    for args in ((odd, k, v), (wide, k, v), (narrow, k, v),
+                 (q, cache[:, :, :48], v), (q, step, v)):
         got = prepare(*args)
         assert launch_plan(*got[1:]) == (route, (False, False, False))
         assert all(torch.equal(a, b) for a, b in zip(args, got[1:]))
@@ -336,3 +346,159 @@ def test_route1_rounding_model_is_within_the_bf16_budget(dh, causal, window,
     diff = _f32(got) - want
     assert np.abs(diff).max() <= 2e-2
     assert np.linalg.norm(diff) / np.linalg.norm(want) <= 1e-2
+
+
+# ------------------- route 2's rounding, modelled on the CPU ---------------
+# csrc/flash_attention.cu computes both products in 3xTF32 on the tensor
+# cores: each f32 operand x as hi = tf32(x) and lo = tf32(x - hi), rounded
+# to nearest (cvt.rna), and lo.hi + hi.lo + hi.hi. The model below repeats
+# its operand rounding, its tiles (64 query rows a block, kv tiles of 32,
+# each block visiting the tiles the masks leave), its online softmax and
+# its order of scaling; the tensor cores' own accumulation is measured on
+# the card (chip_smoke.py phase A).
+
+R2_BQ, R2_BK = 64, 32
+
+
+def _tf32(a):
+    """a rounded to tf32 (10 mantissa bits, to nearest, ties away from
+    zero: cvt.rna.tf32.f32), kept as f32."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b in 3xTF32: lo.hi + hi.lo + hi.hi (a bf16 operand's lo is 0)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _route2_model(q, k, v, *, causal, window, q_offset):
+    """Route 2's arithmetic in torch. Returns (output in q's dtype, the f32
+    output before that rounding). An f32 q is scaled before Q.K^T; a bf16
+    q (exact in tf32) is not, and its scores are scaled in the exponent.
+    Rows past Skv in the last tile read as zeros and are masked, as TMA
+    fills them."""
+    B, H, Sq, dh = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    heads = torch.arange(H) * Hkv // H
+    nk = -(-Skv // R2_BK)
+    pad = nk * R2_BK - Skv
+    kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+              .index_select(1, heads) for t in (k, v))
+    scale = dh ** -0.5
+    if q.dtype == torch.float32:
+        qs, sscale = q * scale, 1.0
+    else:
+        qs, sscale = q.float(), scale
+    # each block of 64 rows visits kv tiles [lo, hi) (the kernel's
+    # tile_range); a row's state changes only on its block's tiles
+    row = torch.arange(Sq)
+    qlo = q_offset + row // R2_BQ * R2_BQ
+    qhi = q_offset + torch.clamp(row // R2_BQ * R2_BQ + R2_BQ, max=Sq) - 1
+    t_hi = torch.full((Sq,), nk)
+    if causal:
+        t_hi = torch.minimum(t_hi, qhi // R2_BK + 1)
+    t_lo = (torch.clamp(qlo - window + 1, min=0) // R2_BK if window
+            else torch.zeros(Sq, dtype=torch.long))
+    qpos = (q_offset + row)[:, None]
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros(B, H, Sq, 1)
+    acc = torch.zeros(B, H, Sq, dh)
+    for t in range(nk):
+        visit = ((t_lo <= t) & (t < t_hi))[:, None]
+        if not visit.any():
+            continue
+        kt, vt = (x[:, :, t * R2_BK:(t + 1) * R2_BK] for x in (kf, vf))
+        s = _mm3(qs, kt.transpose(-1, -2))
+        kpos = t * R2_BK + torch.arange(R2_BK)[None, :]
+        ok = kpos < Skv
+        if causal:
+            ok = ok & (kpos <= qpos)
+        if window:
+            ok = ok & (kpos > qpos - window)
+        s = torch.where(ok, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp((m - m_new) * sscale)
+        p = torch.exp((s - m_new) * sscale)
+        m = torch.where(visit, m_new, m)
+        l = torch.where(visit, l * corr + p.sum(-1, keepdim=True), l)
+        acc = torch.where(visit, acc * corr + _mm3(p, vt), acc)
+    out = acc / l.clamp_min(1e-30)
+    return out.to(q.dtype), out
+
+
+R2_CASES = [  # causal, window, q_offset, Sq, Skv
+    (True, 0, 0, 2048, 2048), (True, 256, 0, 2048, 2048),
+    (False, 0, 0, 2000, 2000),                    # ragged Skv
+    (True, 0, 1536, 512, 2048),                   # the 512-row chunk
+    (True, 0, 0, 32, 32),                         # fewer rows than a block
+    (True, 0, 8, 32, 40)]                         # ... at a q_offset
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [112, 128])
+@pytest.mark.parametrize("causal,window,q_offset,Sq,Skv", R2_CASES)
+def test_route2_rounding_model_is_within_the_f32_budget(
+        q_dtype, dh, causal, window, q_offset, Sq, Skv):
+    """Route 2's 3xTF32 rounding, emulated, against the JAX package's dense
+    reference within the f32 limit chip_smoke.py holds the kernel to,
+    5e-5 max abs: f32 q, k, v, and bf16 q over f32 k and v (held in f32
+    before the output's bf16 rounding, against the reference on the same
+    bf16 values of q). A q_offset chunk is held against those rows of the
+    full attention."""
+    B, H, Hkv = 1, 4, 2
+    (_, jk, jv), (q, k, v) = _qkv(B, H, Hkv, Skv, Skv, dh, dh + Sq + Skv)
+    if q_dtype == "bfloat16":
+        q = q.to(BF16)
+    jq = jnp.asarray(q.float().numpy())
+    rows = slice(q_offset, q_offset + Sq)
+    got, got32 = _route2_model(q[:, :, rows], k, v, causal=causal,
+                               window=window, q_offset=q_offset)
+    want = _f32(jax_reference(jq, jk, jv, causal=causal, window=window))[
+        :, :, rows]
+    assert got.dtype == q.dtype and tuple(got.shape) == (B, H, Sq, dh)
+    assert np.abs(_f32(got32) - want).max() <= 5e-5
+    assert torch.equal(got, got32.to(q.dtype))
+
+
+def test_bf16_operands_are_exact_in_tf32():
+    """Why route 2 skips the lo product of a bf16 operand: every bf16 value
+    (8 significant bits) is a tf32 value (11), so its lo is 0."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32) * 100).to(BF16).float()
+    x = torch.cat([x, torch.tensor([3e38, -1e-38, 0.0, 1.0 + 2 ** -7])
+                   .to(BF16).float()])
+    assert torch.equal(_tf32(x), x)
+    assert torch.equal(_tf32(x - _tf32(x)), torch.zeros_like(x))
+
+
+def test_route2_fragment_layout_reassembles_p_times_v():
+    """The index algebra of route 2's O += P.V, in numpy: the S accumulator
+    fragment of each thread (warp w, lane l: d[4j + 2i + e] = S[16w + l/4
+    + 8i][8j + 2(l%4) + e]) handed over as the tf32 A fragment (a[v] =
+    A[16w + l/4 + 8(v%2)][8kk + l%4 + 4(v/2)]) in the kernel's order
+    (d[4kk], d[4kk+2], d[4kk+1], d[4kk+3]), against V^T written with its
+    positions permuted (position s at column 8(s/8) + (s%8)/2 + 4(s%2)),
+    gives P.V."""
+    rng = np.random.default_rng(1)
+    BK, DH = R2_BK, 112
+    P = rng.standard_normal((64, BK))
+    V = rng.standard_normal((BK, DH))
+    A = np.full((64, BK), np.nan)          # wgmma's logical A
+    for t in range(128):
+        w, lane = divmod(t, 32)
+        g, q4 = divmod(lane, 4)
+        d = {4 * j + 2 * i + e: P[16 * w + g + 8 * i, 8 * j + 2 * q4 + e]
+             for j in range(BK // 8) for i in range(2) for e in range(2)}
+        for kk in range(BK // 8):
+            a = (d[4 * kk], d[4 * kk + 2], d[4 * kk + 1], d[4 * kk + 3])
+            for vv in range(4):
+                A[16 * w + g + 8 * (vv % 2), 8 * kk + q4 + 4 * (vv // 2)] = \
+                    a[vv]
+    Bt = np.full((DH, BK), np.nan)         # V^T as the kernel writes it
+    for s in range(BK):
+        Bt[:, 8 * (s // 8) + (s % 8) // 2 + 4 * (s % 2)] = V[s]
+    assert not np.isnan(A).any() and not np.isnan(Bt).any()
+    np.testing.assert_allclose(A @ Bt.T, P @ V, rtol=1e-12, atol=1e-12)

@@ -3,6 +3,7 @@
 
     python3 tools/kernel_experiments.py k5
     python3 tools/kernel_experiments.py ab --baseline FILE
+    python3 tools/kernel_experiments.py k4r2
 
 ``k5``: where the SSD scan's (K5) time goes. Builds variants of
 ``csrc/ssd_scan.cu`` into ``build/experiments/``, each with pieces of
@@ -18,10 +19,24 @@ on the unmodified source (held against the plain version first), a sweep
 of the heads a block takes and the wrapper's host time per call.
 
 ``ab``: ``csrc/flash_attention_sm90.cu`` (K4 route 1) against a baseline
-copy of it (``FILE``, for example the parent commit's): whether the two
-compile to the same SASS (``cuobjdump -sass``, the anonymous namespace's
-name normalised), and route 1's time at qwen2-1.5b's and zamba2-7b's top
-shapes (bf16, causal) in six alternating turns.
+copy of it (``FILE``, for example the parent commit's; compiled with the
+``.cuh`` headers beside ``FILE`` where there are any, else with this
+tree's): whether the two compile to the same SASS (``cuobjdump -sass``,
+the anonymous namespace's name normalised), and route 1's time at
+qwen2-1.5b's and zamba2-7b's top shapes (bf16, causal) in six
+alternating turns.
+
+``k4r2``: K4's route 2 (f32, and bf16 q over an f32 kv cache;
+``csrc/flash_attention.cu``): ``ptxas``'s registers, spills and shared
+memory for each instance, phase A of ``chip_smoke.py`` (every K4 case
+against the plain version, each held to its route), then route 2's time
+at the five shapes the serving paths launch it at, beside its bounds,
+its plain version's and ``scaled_dot_product_attention``'s in f32 (TF32
+off), as ``chip_smoke.py`` phase 4 times them. Then where its time goes,
+as ``k5`` does for K5: variants of ``csrc/flash_attention.cu`` with pieces
+cut (the Q.K^T products, which then leave S at 0; the P.V products and
+P's split that only feeds them; the split of K and V into operand tiles;
+the exps), timed at qwen2-1.5b's and zamba2-7b's top shapes in f32.
 
 Each result is one JSON line; the card's name and power limit come last.
 """
@@ -83,23 +98,59 @@ VARIANTS = [[], ["M x products"], ["one of three M x products"],
              "epilogue stores", "exps"]]
 
 
+# pieces of K4's route 2, each a list of (text, replacement) in
+# csrc/flash_attention.cu
+K4_CUTS = {
+    "Q.K^T products": [
+        ("    float sc[BK / 2];\n", "    float sc[BK / 2] = {};\n"),
+        ("      if (Q_F32) wgmma_tf32_ss_n32(",
+         "      if (false) wgmma_tf32_ss_n32("),
+        ("        wgmma_tf32_ss_n32(sc, qh, kstep_desc(sKlo",
+         "        if (false) wgmma_tf32_ss_n32(sc, qh, kstep_desc(sKlo"),
+        ("      wgmma_tf32_ss_n32(sc, qh, kh,",
+         "      if (false) wgmma_tf32_ss_n32(sc, qh, kh,")],
+    "P.V products": [
+        ("      wgmma_tf32<DH>(acc, pl[kk], vh);",
+         "      if (false) wgmma_tf32<DH>(acc, pl[kk], vh);"),
+        ("      if (KV_F32) wgmma_tf32<DH>(acc, ph[kk]",
+         "      if (false) wgmma_tf32<DH>(acc, ph[kk]"),
+        ("      wgmma_tf32<DH>(acc, ph[kk], vh);",
+         "      if (false) wgmma_tf32<DH>(acc, ph[kk], vh);")],
+    "K and V splits": [
+        ("        put4(sKhi, sKlo, 16 * (tid",
+         "        if (false) put4(sKhi, sKlo, 16 * (tid"),
+        ("        put4(sVhi, sVlo, even,",
+         "        if (false) put4(sVhi, sVlo, even,"),
+        ("        put4(sVhi, sVlo, odd,",
+         "        if (false) put4(sVhi, sVlo, odd,")],
+    "exps": [
+        ("expf((m[i] - m_new) * sscale)", "((m[i] - m_new) * sscale)"),
+        ("x = expf((x - m_new) * sscale);", "x = (x - m_new) * sscale;")],
+}
+K4_VARIANTS = [[], ["Q.K^T products"], ["P.V products"], ["K and V splits"],
+               ["exps"], list(K4_CUTS)]
+
+
 def emit(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def compile_lib(src, name):
-    """``src`` (with the csrc headers beside it) into build/experiments/."""
+def compile_lib(src, name, headers=None):
+    """``src`` (with the ``.cuh`` headers of ``headers``, by default this
+    tree's csrc, beside it) into build/experiments/<name>/."""
     from repro_torch.kernels import build
-    os.makedirs(OUT, exist_ok=True)
-    cu = os.path.join(OUT, f"{name}.cu")
+    headers = headers or build.CSRC
+    out = os.path.join(OUT, name)
+    os.makedirs(out, exist_ok=True)
+    cu = os.path.join(out, f"{name}.cu")
     with open(cu, "w") as f:
         f.write(src)
-    for header in os.listdir(build.CSRC):
+    for header in os.listdir(headers):
         if header.endswith(".cuh"):
-            with open(build.CSRC / header) as f, \
-                    open(os.path.join(OUT, header), "w") as g:
+            with open(os.path.join(headers, header)) as f, \
+                    open(os.path.join(out, header), "w") as g:
                 g.write(f.read())
-    lib = os.path.join(OUT, f"{name}.so")
+    lib = os.path.join(out, f"{name}.so")
     proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", lib, cu],
                           capture_output=True, text=True)
     if proc.returncode:
@@ -119,9 +170,9 @@ def use_library(name, path):
         build.load = load
 
 
-def cut(src, names):
+def cut(src, names, cuts=CUTS):
     for name in names:
-        for old, new in CUTS[name]:
+        for old, new in cuts[name]:
             if old not in src:
                 raise SystemExit(f"the source no longer has the text cut "
                                  f"for {name!r}: update CUTS")
@@ -191,8 +242,11 @@ def ab(baseline):
     import chip_smoke as c
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fops
+    beside = os.path.dirname(os.path.abspath(baseline))
+    own = any(h.endswith(".cuh") for h in os.listdir(beside))
     with open(baseline) as f:
-        base = compile_lib(f.read(), "flash_attention_sm90_baseline")
+        base = compile_lib(f.read(), "flash_attention_sm90_baseline",
+                           beside if own else None)
     tree = compile_lib((build.CSRC / "flash_attention_sm90.cu").read_text(),
                        "flash_attention_sm90_tree")
     a, b = sass(base).splitlines(), sass(tree).splitlines()
@@ -219,18 +273,74 @@ def ab(baseline):
         emit(shape=c.describe(shape), ms=times)
 
 
+def k4r2():
+    import torch
+
+    import chip_smoke as c
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    lib = build.build("flash_attention")
+    name = "?"
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            emit(kernel=name, ptxas=line.split(":", 1)[-1].strip())
+    smem = build.load("flash_attention").flash_attention_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_int
+    emit(smem_bytes={f"dh={d} q_bf16={qb} kv_bf16={kb}": smem(d, qb, kb)
+                     for d in (32, 64, 112, 128)
+                     for qb, kb in ((0, 0), (1, 0), (0, 1))})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs, rels = c.flash_phase(torch, fops, fref)
+    emit(phase_a_max_abs_err=errs, phase_a_rel_l2=rels)
+    for shape in c.route2_shapes():
+        t = c.flash_timings(shape, torch, fops, fref, "float32")
+        emit(**{k: t[k] for k in ("B", "H", "Hkv", "Sq", "Skv", "dh",
+                                  "q_offset", "ms", "bound_ms",
+                                  "bound_ms_3xtf32", "plain_ms",
+                                  "library_ms")})
+
+    import concurrent.futures
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    jobs = [(cut(src, names, K4_CUTS), "k4r2_" + "_".join(
+        "".join(ch for ch in n if ch.isalnum()) for n in names) or "k4r2")
+        for names in K4_VARIANTS]
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        libs = list(pool.map(lambda j: compile_lib(*j), jobs))
+    big = c.flash_shapes()[0]
+    for shape in (big[0], big[5]):
+        B, H, Hkv, Sq, Skv, dh, causal, window, off = shape
+        q, k, v = c.flash_inputs(shape, torch.float32, torch.float32, 99,
+                                 torch)
+        for names, lib in zip(K4_VARIANTS, libs):
+            with use_library("flash_attention", lib):
+                ms = c.time_ms(lambda: fops.flash_attention_kernel(
+                    q, k, v, off, causal=causal, window=window), torch)
+            emit(shape=c.describe(shape), cut=names, ms=ms)
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="what", required=True)
     sub.add_parser("k5")
     q = sub.add_parser("ab")
     q.add_argument("--baseline", required=True)
+    sub.add_parser("k4r2")
     args = p.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA GPU")
     import chip_smoke as c
-    k5() if args.what == "k5" else ab(args.baseline)
+    print(c.card_line(), flush=True)
+    if args.what == "k5":
+        k5()
+    elif args.what == "ab":
+        ab(args.baseline)
+    else:
+        k4r2()
     print(c.card_line(), flush=True)
 
 
