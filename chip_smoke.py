@@ -10,10 +10,16 @@ Phases, each fatal on failure (exit code 1, no result line):
      n = 1, 255, 65,539 and the whole model;
   Q. hold quantize (K2) and dequantize (K3) bit for bit against their
      plain versions on the card: every MobileNetV2 stage-boundary shape
-     at levels 255 with and without a residual, odd shapes at levels 4,
-     constant and all-zero channels (exact round trip), the
-     error-feedback invariant ``res' == z - dequantize(q)``, and
-     non-finite inputs (``ok`` False, ``z == x + res``);
+     at levels 255 with and without a residual (K2 with z written and
+     without), odd shapes at levels 4, constant and all-zero channels
+     (exact round trip), the error-feedback invariant
+     ``res' == z - dequantize(q)``, non-finite inputs (``ok`` False,
+     ``z == x + res``), an x one element past a 16-byte boundary, a
+     shape whose z does not fit on chip ([1,048,576, 32]: K2 reads x and
+     res again after its grid barrier; both branches must run), and K3 on
+     the code view ``StageExecutor`` builds (byte offset 8C of one
+     buffer; not 16-byte aligned for odd C) at C = 7, 33 and 32, and
+     [129, 9001] (more channels than K2 keeps keys for on chip);
   2. hold the port against itself across devices: the MobileNetV2 chain's
      loss and input gradient on the card against the CPU, and three
      ``StageExecutor`` steps through the kernel against the plain path;
@@ -97,8 +103,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      ``torch.optim.SGD(fused=True)``; K4:
      ``F.scaled_dot_product_attention``, given the window's and the
      query offset's boolean mask where it has them, and held against the
-     plain version first; yardsticks the port never calls; no single
-     PyTorch call computes K2, K3 or K5). K4 is timed in bf16 (route 1)
+     plain version first; K3: ``torch.addcmul(lo, scale, q)``, held
+     within 2 spacings of ``max(|out|, |lo|)`` of the plain version first,
+     as it may contract into an FMA; yardsticks the port never calls; no
+     single PyTorch call computes K2 or K5), and for K2 and K3 the
+     wrapper's host time a call (1,000 calls, no sync). K4 is timed in bf16 (route 1)
      at every phase-A shape, and in f32 (route 2) at the five shapes the
      serving paths launch it at (qwen2's top shape and its 512-row chunk
      at q_offset 1536, zamba2's top shape, its last 512-row chunk over the
@@ -121,6 +130,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -186,15 +196,26 @@ def kernel_vs_plain(n, seed, torch, ops, ref):
     return diff
 
 
-def time_ms(fn, torch, reps=30):
+def time_ms(fn, torch, reps=30, clean=False):
     """Median device time of one call, with the L2 cache flushed before
-    each (a stage's update finds its buffers cold after fwd/bwd)."""
-    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    each (a stage's update finds its buffers cold after fwd/bwd): a 256 MB
+    buffer is written, which leaves the L2 full of dirty lines that the
+    call's own traffic then writes back. ``clean``: the buffer is read
+    instead, which leaves the L2 clean, so the call moves its own bytes
+    only. Either flush runs three times (~0.3 ms of device work) so that
+    the host has enqueued the call's launches before the device reaches
+    the first event: the time is the device's, not the wrapper's (a
+    wrapper's host time a call is ``host_ms``)."""
+    flush = torch.zeros(64 << 20, dtype=torch.int32, device="cuda")
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        for _ in range(3):
+            if clean:
+                flush.sum()
+            else:
+                flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -308,9 +329,13 @@ def quant_phase(shapes, torch, qops, qref):
              for with_res in (False, True)]
     cases += [(rows, C, 4, with_res) for rows, C in ((1, 1), (7, 33))
               for with_res in (False, True)]
-    err = 0.0
+    # more channels than K2 keeps keys for on chip (one block, keys in
+    # device memory), odd, so every pointer has a head and a tail
+    cases += [(129, 9001, 255, True)]
+    err, branches = 0.0, set()
     for rows, C, levels, with_res in cases:
         x, res = quant_inputs(rows, C, rows + C, with_res, torch)
+        branches.add(qops.quantize_plan(x, res).z_on_chip)
         e, ok = quant_vs_plain(x, res, levels, f"[{rows}, {C}] levels="
                                f"{levels} res={with_res}", torch, qops, qref)
         check(ok, f"finite input [{rows}, {C}] reported not ok")
@@ -337,8 +362,50 @@ def quant_phase(shapes, torch, qops, qref):
                                qops, qref)
         check(not ok, f"quantize_ef ok with {bad} in {where}")
         err = max(err, e)
+    # x one element past a 16-byte boundary (res aligned, so read 4 bytes
+    # at a time), with and without a residual
+    for (rows, C), with_res in ((shapes[0], True), (shapes[-1], False)):
+        x, res = quant_inputs(rows, C, 12, with_res, torch)
+        x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(rows, C)
+        check(x.data_ptr() % 16 == 4, "the shifted x is not 4 bytes past "
+                                      "a 16-byte boundary")
+        err = max(err, quant_vs_plain(x, res, 255, f"x at +4 bytes [{rows}, "
+                                      f"{C}] res={with_res}", torch, qops,
+                                      qref)[0])
+    # a shape whose z does not fit on chip: x and res read again
+    x, res = quant_inputs(1_048_576, 32, 13, True, torch)
+    plan = qops.quantize_plan(x, res)
+    branches.add(plan.z_on_chip)
+    check(not plan.z_on_chip, "[1048576, 32] planned with z on chip")
+    err = max(err, quant_vs_plain(x, res, 255, "[1048576, 32] (z re-read)",
+                                  torch, qops, qref)[0])
+    check(branches == {True, False}, f"phase Q ran the z-on-chip branches "
+                                     f"{branches} only")
+    del x, res
+    # K3 on the code view the receiving stage builds (one host->device
+    # copy of lo | scale | codes; codes at byte offset 8C)
+    from repro_torch.runtime.qtensor import DeviceQuantized
+    from repro_torch.runtime.stage_executor import StageExecutor
+    heads = {}
+    for C in (7, 33, 32):
+        x, _ = quant_inputs(4099, C, 14 + C, False, torch)
+        q, lo, scale, *_ = qops.quantize_ef(x)
+        wire = DeviceQuantized.from_arrays(q, lo, scale)
+        dq_q, dq_lo, dq_scale = StageExecutor._device_triple(
+            types.SimpleNamespace(device=torch.device("cuda")), wire)
+        heads[C] = qops.dequantize_plan(dq_q).head
+        got = qops.dequantize(dq_q, dq_lo, dq_scale)
+        want = qref.dequantize_reference(dq_q, dq_lo, dq_scale)
+        torch.cuda.synchronize()
+        check(same(got, want, torch), f"dequantize differs from its plain "
+                                      f"version on the code view, C={C}")
+        check(torch.equal(got, qops.dequantize(q, lo, scale)),
+              f"the code view decodes differently, C={C}")
+    check(heads == {7: 8, 33: 8, 32: 0}, f"code-view heads {heads}")
     log(f"quantize_ef and dequantize bit-identical to plain over "
-        f"{len(cases) + 5} cases (boundaries {shapes}); EF invariant exact")
+        f"{len(cases) + 11} cases (boundaries {shapes}; z kept on chip and "
+        f"re-read; x at +4 bytes; K3 on the code view, heads {heads}); EF "
+        f"invariant exact")
     return err
 
 
@@ -361,18 +428,54 @@ def quant_timings(rows, C, torch, qops, qref):
     # K3 reads q, lo, scale; writes the f32 tensor; 3 operations (cvt,
     # mul, add)
     k3_ms, k3_by = bound(5 * n + 8 * C, 3 * n)
+    # the yardstick computes K3's function, rounding once where it fuses
+    lib = torch.addcmul(lo, scale, q)
+    plain = qref.dequantize_reference(q, lo, scale)
+    torch.cuda.synchronize()
+    tol = 2 * torch.maximum(plain.abs(), lo.abs()).nextafter(
+        torch.tensor(float("inf"), device="cuda")).sub(
+        torch.maximum(plain.abs(), lo.abs()))
+    check(bool(((lib - plain).abs() <= tol).all()),
+          f"torch.addcmul(lo, scale, q) is not K3's function at "
+          f"[{rows}, {C}]")
+    k2 = lambda: qops.quantize_ef(x, res, with_z=False)      # noqa: E731
+    k3 = lambda: qops.dequantize(q, lo, scale)                # noqa: E731
     return (
-        {"rows": rows, "C": C,
-         "ms": time_ms(lambda: qops.quantize_ef(x, res, with_z=False),
-                       torch),
+        {"rows": rows, "C": C, "ms": time_ms(k2, torch),
          "plain_ms": time_ms(lambda: qref.quantize_ef_reference(x, res),
                              torch),
-         "bound_ms": k2_ms, "bound_by": k2_by},
-        {"rows": rows, "C": C,
-         "ms": time_ms(lambda: qops.dequantize(q, lo, scale), torch),
+         "bound_ms": k2_ms, "bound_by": k2_by, "host_ms": host_ms(k2, torch),
+         "z_on_chip": qops.quantize_plan(x, res).z_on_chip},
+        {"rows": rows, "C": C, "ms": time_ms(k3, torch),
          "plain_ms": time_ms(lambda: qref.dequantize_reference(q, lo, scale),
                              torch),
-         "bound_ms": k3_ms, "bound_by": k3_by})
+         "library_ms": time_ms(lambda: torch.addcmul(lo, scale, q), torch),
+         "bound_ms": k3_ms, "bound_by": k3_by, "host_ms": host_ms(k3, torch)})
+
+
+def host_ms(fn, torch, calls=1000):
+    """Host wall time of one call: ``calls`` calls with no sync between
+    them, over ``calls`` (the device keeps up, so this is the wrapper's
+    own time to launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / calls
+
+
+def ptxas_lines(lib):
+    """(kernel, what ptxas says) for each entry of a built library."""
+    name, out = "?", []
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            out.append((name, line.split(":", 1)[-1].strip()))
+    return out
 
 
 def stage_sizes(layout, points):
@@ -1666,12 +1769,8 @@ def main():
         f"{time.perf_counter() - t0:.1f}s; ptxas says, for each kernel "
         f"(the whole nvcc output is beside each library, *.log):")
     for lib in libs:
-        name = "?"
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "Compiling entry function" in line:
-                name = line.split("'")[1]
-            elif "registers" in line or "spill" in line:
-                log(f"  {name[:90]}: {line.split(':', 1)[-1].strip()}")
+        for name, what in ptxas_lines(lib):
+            log(f"  {name[:90]}: {what}")
     smem = build.load("ssd_scan").ssd_scan_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_int
     log(f"  K5 dynamic shared memory at N=64 (passes 1, 3; x/dt,B,C f32 "
@@ -1748,9 +1847,13 @@ def main():
         "replaces": "src/repro/kernels/fused_sgd/kernel.py:23",
         "launches": main_run["launches"]["fused_sgd"],
         "max_abs_err": max_diff, **full, "per_slice": per_slice}]
-    no_library = ("no single PyTorch call computes it: "
-                  "torch.quantize_per_channel takes its scales as inputs "
-                  "and uses a zero point")
+    notes = {"quantize_ef": "no single PyTorch call computes it: "
+                            "torch.quantize_per_channel takes its scales "
+                            "as inputs and uses a zero point",
+             "dequantize": "torch.addcmul(lo, scale, q), within 2 spacings "
+                           "of the plain version"}
+    quant_ptxas = [f"{name}: {what}" for name, what in
+                   ptxas_lines(build.build("quant"))]
     for name, replaces, times in (
             ("quantize_ef", "src/repro/kernels/quant/kernel.py:57",
              k2_times),
@@ -1763,8 +1866,16 @@ def main():
             "launches": fused["launches"][name], "max_abs_err": quant_err,
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"],
-            "bound_by": top["bound_by"], "library_ms": None,
-            "library_note": no_library, "per_shape": list(times)})
+            "bound_by": top["bound_by"],
+            "library_ms": top.get("library_ms"), "host_ms": top["host_ms"],
+            "library_note": notes[name], "ptxas": quant_ptxas,
+            "per_shape": list(times)})
+    log("K2 / K3 ms (bound, host ms a call; K3's addcmul) per boundary: "
+        + "; ".join(
+            f"[{a['rows']}, {a['C']}] {a['ms']:.4f} ({a['bound_ms']:.4f}, "
+            f"{a['host_ms']:.4f}) / {b['ms']:.4f} ({b['bound_ms']:.4f}, "
+            f"{b['host_ms']:.4f}; {b['library_ms']:.4f})"
+            for a, b in zip(k2_times, k3_times)))
     k4_times = [flash_timings(sh, torch, fops, fref)
                 for sh in flash_shapes()[0]]
     # route 2 at qwen2's top shape, then the serving paths' other shapes

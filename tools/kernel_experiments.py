@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Experiments on the port's tensor-core kernels, on one CUDA GPU.
+"""Experiments on the port's kernels, on one CUDA GPU.
 
     python3 tools/kernel_experiments.py k5
     python3 tools/kernel_experiments.py ab --baseline FILE
     python3 tools/kernel_experiments.py k4r2
+    python3 tools/kernel_experiments.py quant [--no-cuts] [--baseline FILE]
 
 ``k5``: where the SSD scan's (K5) time goes. Builds variants of
 ``csrc/ssd_scan.cu`` into ``build/experiments/``, each with pieces of
@@ -38,6 +39,32 @@ cut (the Q.K^T products, which then leave S at 0; the P.V products and
 P's split that only feeds them; the split of K and V into operand tiles;
 the exps), timed at qwen2-1.5b's and zamba2-7b's top shapes in f32.
 
+``quant``: quantize (K2) and dequantize (K3), ``csrc/quant.cu``:
+``ptxas``'s registers, spills and shared memory for each kernel, phase Q
+of ``chip_smoke.py`` (both bit for bit against the plain version at every
+MobileNetV2-CIFAR boundary shape and the other cases there), their times
+at every boundary as phase 4 takes them (device time, bound, the
+wrapper's host time a call, K3's ``torch.addcmul`` yardstick); the host
+time of the wrapper's pieces, PyTorch's own elementwise kernels over the
+same bytes (``q.float()``, an 8 MB fill, ``torch.add(x, res)``), the time
+an empty launch measures (the floor of the CUDA-event timing) and the
+kernels' device time from ``torch.profiler``. With ``--baseline FILE``:
+an earlier ``quant.cu`` with the C interface of the three-pass version
+(two memsets, min/max, params, apply; scalar K3), called as its wrapper
+did (six allocations for K2), timed against this tree's at every
+boundary in turns (baseline, tree, tree, baseline), device and host time.
+Then block shapes (K2's threads, blocks an SM and units a thread loads
+at once; K3's launch bounds), each held bit for bit first, and K2 taken
+apart at [65,536, 32] and [1,024, 160] (with a residual, z not written;
+also without a residual): variants with the apply half cut, the grid
+barrier cut, the fold of the blocks' partials cut, all three cut (the
+load-and-reduce half alone, also as an ordinary launch), all work cut
+(the launch alone), and the loads through the read-only path instead of
+streaming; and the unmodified kernel with its re-read branch forced (z
+not kept on chip). Every time is beside the one with the L2 left clean
+(``chip_smoke.time_ms(clean=True)``). ``--no-cuts`` stops after the
+times.
+
 Each result is one JSON line; the card's name and power limit come last.
 """
 import argparse
@@ -45,6 +72,7 @@ import contextlib
 import ctypes
 import json
 import os
+import pathlib
 import re
 import subprocess
 import sys
@@ -131,6 +159,54 @@ K4_VARIANTS = [[], ["Q.K^T products"], ["P.V products"], ["K and V splits"],
                ["exps"], list(K4_CUTS)]
 
 
+# pieces of K2, each a list of (text, replacement) in csrc/quant.cu
+QUANT_CUTS = {
+    "apply": [("  for (int j = jt; active && j < a.J; j += a.Jt) {  // apply",
+               "  for (int j = jt; false && j < a.J; j += a.Jt) {  // apply")],
+    "barrier": [("  cg::this_grid().sync();\n", "")],
+    "fold": [("  if (kc) {\n    // this block's own keys",
+              "  if (false) {\n    // this block's own keys")],
+    # x, res and the codes read through the read-only path
+    # (ld.global.nc) instead of with the streaming hint (ld.global.cs)
+    "streaming loads": [
+        ("    xv[k] = __ldcs(x4 + u[k]);", "    xv[k] = __ldg(x4 + u[k]);"),
+        ("      rv[k] = __ldcs(reinterpret_cast<const float4*>(a.res",
+         "      rv[k] = __ldg(reinterpret_cast<const float4*>(a.res"),
+        ("    uint4 v = have ? __ldcs(qv + u)",
+         "    uint4 v = have ? __ldg(qv + u)"),
+        ("      const uint4 vn = next ? __ldcs(qv + un)",
+         "      const uint4 vn = next ? __ldg(qv + un)")],
+    # the launch alone: every block returns at once
+    "all work": [("  const bool kc = a.keys_on_chip;\n",
+                  "  const bool kc = a.keys_on_chip;\n  if (C > 0) return;\n")],
+    # an ordinary launch instead of a cooperative one (only where the grid
+    # barrier is cut too)
+    "cooperative launch": [("cudaLaunchCooperativeKernel(",
+                            "cudaLaunchKernel(")],
+}
+QUANT_VARIANTS = [[], ["apply"], ["barrier"], ["fold"],
+                  ["barrier", "fold", "apply"],
+                  ["barrier", "fold", "apply", "cooperative launch"],
+                  ["all work"], ["all work", "cooperative launch"],
+                  ["streaming loads"],
+                  ["barrier", "fold", "apply", "streaming loads"]]
+# K2's block size and units a thread loads at once, and K3's launch bounds
+QUANT_SHAPES = {
+    "K2 threads": "constexpr int kQuantThreads = {};",
+    "K2 blocks an SM": "__launch_bounds__(kQuantThreads, {})",
+    "K2 unroll": "constexpr int kUnroll = {};",
+    "K3 bounds": "__global__ void __launch_bounds__(kDequantThreads{})\n"
+                 "dequantize_kernel(",
+}
+QUANT_TUNES = [
+    {"K2 threads": 1024, "K2 blocks an SM": 1, "K2 unroll": 2,
+     "K3 bounds": ", 3"},
+    {"K2 threads": 512, "K2 blocks an SM": 2, "K2 unroll": 2,
+     "K3 bounds": ", 4"},
+    {"K2 threads": 512, "K2 blocks an SM": 1, "K2 unroll": 4,
+     "K3 bounds": ""}]
+
+
 def emit(**kw):
     print(json.dumps(kw), flush=True)
 
@@ -153,6 +229,8 @@ def compile_lib(src, name, headers=None):
     lib = os.path.join(out, f"{name}.so")
     proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", lib, cu],
                           capture_output=True, text=True)
+    with open(os.path.join(out, f"{name}.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {cu}:\n{proc.stderr[-4000:]}")
     return lib
@@ -322,6 +400,241 @@ def k4r2():
             emit(shape=c.describe(shape), cut=names, ms=ms)
 
 
+def baseline_quant(path):
+    """K2 and K3 of an earlier quant.cu with the three-pass C interface,
+    allocating as its wrapper did: (k2(x, res), k3(q, lo, scale))."""
+    import torch
+
+    from repro_torch.kernels.quant.ref import inv_levels
+    lib = ctypes.CDLL(compile_lib(open(path).read(), "quant_baseline"))
+    vp = ctypes.c_void_p
+    q2, q3 = lib.quantize_ef_launch, lib.dequantize_launch
+    q2.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float] + [vp] * 8
+    q3.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp, vp]
+    q2.restype = q3.restype = ctypes.c_int
+
+    def k2(x, res):
+        C = x.shape[-1]
+        q = torch.empty(x.shape, dtype=torch.uint8, device="cuda")
+        lo = torch.empty(C, device="cuda")
+        scale = torch.empty(C, device="cuda")
+        res2 = torch.empty_like(x)
+        ok = torch.empty((), dtype=torch.bool, device="cuda")
+        scratch = torch.empty(2 * C + 1, dtype=torch.int32, device="cuda")
+        rc = q2(x.data_ptr(), res.data_ptr(), x.numel() // C, C, 255,
+                inv_levels(255), q.data_ptr(), lo.data_ptr(),
+                scale.data_ptr(), res2.data_ptr(), None, ok.data_ptr(),
+                scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return q, lo, scale, res2, ok
+
+    def k3(q, lo, scale):
+        out = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+        rc = q3(q.data_ptr(), lo.data_ptr(), scale.data_ptr(), q.numel(),
+                q.shape[-1], out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return out
+
+    return k2, k3
+
+
+def quant_host_pieces(torch, qops):
+    """Host time (us a call, 2,000 calls) of the pieces of a K2 call at
+    [65,536, 32], and the kernels' device time from torch.profiler."""
+    import chip_smoke as c
+    from torch.profiler import ProfilerActivity, profile
+    x, res = c.quant_inputs(65536, 32, 7, True, torch)
+    dev = x.device
+    plan = qops.quantize_plan(x, res)
+    pieces = {
+        "quantize_plan": lambda: qops.quantize_plan(x, res),
+        "torch.empty": lambda: torch.empty(x.shape, dtype=torch.uint8,
+                                           device=dev),
+        "split": lambda: torch.empty(64, device=dev).split([32, 32]),
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "data_ptr": lambda: x.data_ptr(),
+        "whole K2 call": lambda: qops.quantize_ef(x, res, with_z=False),
+        "whole K3 call": lambda: qops.dequantize(*k2out[:3]),
+    }
+    k2out = qops.quantize_ef(x, res, with_z=False)
+    out = {}
+    for name, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        out[name] = 1e6 * (time.perf_counter() - t0) / 2000
+        torch.cuda.synchronize()
+    emit(host_us_a_call=out, grid=plan.grid, smem=plan.smem)
+    # PyTorch's own elementwise kernels over the same bytes: K3's (2 MB
+    # of codes read, 8 MB of f32 written) and K2's read of x and res
+    # with z written
+    q8 = k2out[0]
+    dst = torch.empty_like(x)
+    for name, fn in (("q.float()", lambda: q8.float()),
+                     ("fill 8 MB", lambda: dst.fill_(1.0)),
+                     ("torch.add(x, res, out=z)",
+                      lambda: torch.add(x, res, out=dst))):
+        emit(yardstick=name, ms=c.time_ms(fn, torch),
+             ms_clean_l2=c.time_ms(fn, torch, clean=True))
+    one = torch.empty(1, device=dev)
+    emit(event_floor_ms=c.time_ms(lambda: one.zero_(), torch),
+         event_floor_ms_clean_l2=c.time_ms(lambda: one.zero_(), torch,
+                                           clean=True))
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            flush.zero_()
+            qops.quantize_ef(x, res, with_z=False)
+            flush.zero_()
+            qops.dequantize(*k2out[:3])
+        torch.cuda.synchronize()
+    dev_ms = {}
+    for e in prof.key_averages():
+        for name in ("quantize_ef_kernel", "dequantize_kernel"):
+            if name in e.key:
+                us = (getattr(e, "device_time_total", None)
+                      or getattr(e, "cuda_time_total", 0) or 0)
+                dev_ms[name] = us / 1e3 / 20
+    emit(profiler_device_ms=dev_ms)
+
+
+def quant(cuts=True, baseline=None):
+    import concurrent.futures
+
+    import torch
+
+    import chip_smoke as c
+    from repro_torch.kernels import build
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.kernels.quant import ref as qref
+    from repro_torch.runtime.workload import WorkloadSpec
+    for name, what in c.ptxas_lines(build.build("quant")):
+        emit(kernel=name, ptxas=what)
+    chain, batches = WorkloadSpec(kind="mobilenet", image_hw=32,
+                                  batch_size=64).build(device="cuda")
+    shapes = c.boundary_shapes(chain, batches[0], torch)
+    emit(phase_q_max_abs_err=c.quant_phase(shapes, torch, qops, qref))
+    for rows, C in shapes:
+        k2, k3 = c.quant_timings(rows, C, torch, qops, qref)
+        emit(K2=k2, K3=k3)
+    quant_host_pieces(torch, qops)
+    if baseline:
+        old2, old3 = baseline_quant(baseline)
+        for rows, C in shapes:
+            x, res = c.quant_inputs(rows, C, 7, True, torch)
+            q, lo, scale, *_ = qops.quantize_ef(x, res)
+            new2 = lambda: qops.quantize_ef(x, res, with_z=False)  # noqa
+            new3 = lambda: qops.dequantize(q, lo, scale)           # noqa
+            o2 = old2(x, res)
+            c.check(all(torch.equal(a, b) for a, b in zip(o2, new2())),
+                    "the baseline K2 differs")
+            c.check(torch.equal(old3(q, lo, scale), new3()),
+                    "the baseline K3 differs")
+            rec = {"rows": rows, "C": C}
+            for turn in ("baseline", "tree", "tree", "baseline"):
+                f2 = (lambda: old2(x, res)) if turn == "baseline" else new2
+                f3 = (lambda: old3(q, lo, scale)) if turn == "baseline" \
+                    else new3
+                for k, f in (("K2", f2), ("K3", f3)):
+                    rec.setdefault(f"{k}_{turn}_ms", []).append(
+                        c.time_ms(f, torch))
+                    rec.setdefault(f"{k}_{turn}_ms_clean_l2", []).append(
+                        c.time_ms(f, torch, clean=True))
+                    rec.setdefault(f"{k}_{turn}_host_ms", []).append(
+                        c.host_ms(f, torch))
+            emit(**rec)
+    if not cuts:
+        return
+    src = (build.CSRC / "quant.cu").read_text()
+    tree = {k: next(v for v in (QUANT_SHAPES[k].format(x) for x in
+                                (1024, 512, 256, 4, 2, 1, 8, ", 4", ", 3",
+                                 ""))
+                    if v in src) for k in QUANT_SHAPES}
+    tunes = []
+    for tune in QUANT_TUNES:
+        text = src
+        for k, v in tune.items():
+            text = text.replace(tree[k], QUANT_SHAPES[k].format(v))
+        tunes.append(text)
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        tuned = list(pool.map(lambda j: compile_lib(j[1], f"quant_tune{j[0]}"),
+                              enumerate(tunes)))
+    threads, sms = qops.K2_THREADS, qops._sms
+    for tune, lib in zip(QUANT_TUNES, tuned):
+        qops.K2_THREADS = tune["K2 threads"]
+        qops._sms = lambda i, k=tune["K2 blocks an SM"]: k * sms(i)
+        qops._quantize_plan.cache_clear()
+        try:
+            for rows, C in (shapes[0], shapes[-1]):
+                x, res = c.quant_inputs(rows, C, 7, True, torch)
+                want = qref.quantize_ef_reference(x, res)
+                with use_library("quant", lib):
+                    got = qops.quantize_ef(x, res)
+                    c.check(all(c.same(a, b, torch) for a, b in
+                                zip(got, want)), f"{tune} differs")
+                    dq = qops.dequantize(*got[:3])
+                    c.check(torch.equal(dq, qref.dequantize_reference(
+                        *got[:3])), f"{tune} K3 differs")
+                    k2 = lambda: qops.quantize_ef(x, res,  # noqa: E731
+                                                  with_z=False)
+                    k3 = lambda: qops.dequantize(*got[:3])  # noqa: E731
+                    emit(tune=tune, rows=rows, C=C,
+                         K2_ms=c.time_ms(k2, torch),
+                         K2_ms_clean_l2=c.time_ms(k2, torch, clean=True),
+                         K3_ms=c.time_ms(k3, torch),
+                         K3_ms_clean_l2=c.time_ms(k3, torch, clean=True))
+        finally:
+            qops.K2_THREADS, qops._sms = threads, sms
+            qops._quantize_plan.cache_clear()
+    for tune, lib in zip(QUANT_TUNES, tuned):
+        emit(tune=tune, ptxas=[f"{n[-40:]}: {w}" for n, w in
+                               c.ptxas_lines(pathlib.Path(lib))])
+    jobs = [(cut(src, names, QUANT_CUTS),
+             "quant_" + "_".join(names) if names else "quant_tree")
+            for names in QUANT_VARIANTS]
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        libs = list(pool.map(lambda j: compile_lib(*j), jobs))
+    plan = qops._quantize_plan
+
+    def reread(*args):
+        p = plan(*args)
+        return p._replace(z_on_chip=False,
+                          smem=p.smem - p.per_block * p.period_units * 16)
+
+    for rows, C in (shapes[0], shapes[-1]):
+        x, res = c.quant_inputs(rows, C, 7, True, torch)
+        k2 = lambda: qops.quantize_ef(x, res, with_z=False)  # noqa: E731
+        for names, lib in zip(QUANT_VARIANTS, libs):
+            with use_library("quant", lib):
+                rec = dict(rows=rows, C=C, cut=names or "nothing",
+                           ms=c.time_ms(k2, torch),
+                           ms_clean_l2=c.time_ms(k2, torch, clean=True),
+                           ms_without_res=c.time_ms(
+                               lambda: qops.quantize_ef(x, with_z=False),
+                               torch))
+                if "streaming loads" in names or not names:
+                    q, lo, scale, *_ = qops.quantize_ef(x, res)
+                    rec["K3_ms"] = c.time_ms(
+                        lambda: qops.dequantize(q, lo, scale), torch)
+                emit(**rec)
+        qops._quantize_plan = reread
+        try:
+            want = qref.quantize_ef_reference(x, res)
+            got = k2()
+            c.check(all(c.same(a, b, torch) for a, b in zip(got[:4], want)),
+                    "the forced re-read branch differs from plain")
+            emit(rows=rows, C=C, cut="re-read forced (z not kept on chip)",
+                 ms=c.time_ms(k2, torch),
+                 ms_clean_l2=c.time_ms(k2, torch, clean=True))
+        finally:
+            qops._quantize_plan = plan
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="what", required=True)
@@ -329,6 +642,9 @@ def main():
     q = sub.add_parser("ab")
     q.add_argument("--baseline", required=True)
     sub.add_parser("k4r2")
+    q = sub.add_parser("quant")
+    q.add_argument("--no-cuts", action="store_true")
+    q.add_argument("--baseline")
     args = p.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -339,8 +655,10 @@ def main():
         k5()
     elif args.what == "ab":
         ab(args.baseline)
-    else:
+    elif args.what == "k4r2":
         k4r2()
+    else:
+        quant(not args.no_cuts, args.baseline)
     print(c.card_line(), flush=True)
 
 
