@@ -41,6 +41,24 @@ Phases, each fatal on failure (exit code 1, no result line):
      algorithms prints how far rounding alone moves the losses. Before
      each run the kernels' launch counts are reset, and they are read
      just after;
+  P. the main path over TCP: ``Run(RunConfig(transport="tcp"))`` with
+     phase F's int8-fused settings (workload, profile, spec capacities,
+     cadences, deterministic cuDNN) runs the coordinator and worker 0
+     here and workers 1, 2 as spawned OS processes on the card, each
+     with its own CUDA context; worker 1 SIGKILLs itself at batch 12.
+     Exit codes {1: -9, 2: 0}, every batch committed, losses finite and
+     falling, one recovery of worker 1, a re-partition, phase F's
+     partitions and recovery partition, and in this process (worker 0,
+     stage 0) K1, K2 and K3 each at least once a committed batch. Then a
+     failure-free TCP run against a queue run of the same config:
+     per-batch losses within rtol 1e-5. Prints a ``{"tcp": ...}`` line:
+     wall s, batches/s beside phase F's, start-up s (spawn to the last
+     worker heard), recovery s (kill to the resumed batch's commit), the
+     bytes by kind the coordinator's process received, exit codes;
+  L. the entry point as a user starts it, ``python -m
+     repro_torch.launch.live_train --chain mobilenet --workers 3
+     --batches 20 --kill 1@8 --transport tcp`` (a subprocess, 300 s at
+     most): exit 0, worker exit codes {1: -9, 2: 0}, one recovery;
   A. hold flash attention (K4) against its plain version on the card at
      qwen2-1.5b's heads (H=12, Hkv=2, dh=128), B=4: S=2048 causal,
      S=1000 ragged causal, S=2048 with a 256 window, S=1000 non-causal,
@@ -544,23 +562,24 @@ def implied_launches(res, per_batch):
                               if b0 <= b][-1])) for b in range(NUM_BATCHES))
 
 
-def live_run(torch, counters, tier=None, profile=None):
-    """``run_live_training`` of MobileNetV2-CIFAR on the card. With
-    ``tier`` None, on the default data plane (device tensors handed
-    between the workers, no codec) and the run's own measured profile;
-    else every payload goes through the wire codec on ``tier``, and the
-    partitions come from the given layer ``profile``. The launch counts in
-    ``counters`` are set to 0 just before the run and read just after."""
-    from repro_torch.runtime.devices import DeviceSpec, uniform_bandwidth
-    from repro_torch.runtime.live import LiveConfig, run_live_training
-    from repro_torch.runtime.protocol import ProtocolConfig
+def live_spec():
+    """The main path's workload: MobileNetV2-CIFAR, 32x32, batch 64."""
     from repro_torch.runtime.workload import WorkloadSpec
-    chain, batches = WorkloadSpec(kind="mobilenet", image_hw=32,
-                                  batch_size=64, seed=0).build(device="cuda")
+    return WorkloadSpec(kind="mobilenet", image_hw=32, batch_size=64, seed=0)
+
+
+def live_config(tier=None, profile=None, kill=KILL):
+    """The main path's ``LiveConfig``: 3 workers with spec capacities (1, 1,
+    4), ``kill``; with ``tier`` None the default data plane and the run's
+    own measured profile, else every payload through the wire codec on
+    ``tier`` and the partitions from ``profile``."""
+    from repro_torch.runtime.devices import DeviceSpec, uniform_bandwidth
+    from repro_torch.runtime.live import LiveConfig
+    from repro_torch.runtime.protocol import ProtocolConfig
     wire = ({} if tier is None else
             dict(profile=profile, wire_codec=True, wire_compress=tier,
                  wire_compress_replica="off"))
-    cfg = LiveConfig(
+    return LiveConfig(
         num_workers=3, num_batches=NUM_BATCHES,
         protocol=ProtocolConfig(chain_every=10, global_every=20,
                                 repartition_first_at=5, repartition_every=15,
@@ -569,7 +588,19 @@ def live_run(torch, counters, tier=None, profile=None):
         device_specs=[DeviceSpec("central", 1.0), DeviceSpec("peer", 1.0),
                       DeviceSpec("slow", 4.0)],
         bandwidth=uniform_bandwidth(3, 1e9), capacity_source="spec",
-        kill=KILL, segment_timeout=120.0, device="cuda", **wire)
+        kill=kill, segment_timeout=120.0, device="cuda", **wire)
+
+
+def live_run(torch, counters, tier=None, profile=None):
+    """``run_live_training`` of MobileNetV2-CIFAR on the card. With
+    ``tier`` None, on the default data plane (device tensors handed
+    between the workers, no codec) and the run's own measured profile;
+    else every payload goes through the wire codec on ``tier``, and the
+    partitions come from the given layer ``profile``. The launch counts in
+    ``counters`` are set to 0 just before the run and read just after."""
+    from repro_torch.runtime.live import run_live_training
+    chain, batches = live_spec().build(device="cuda")
+    cfg = live_config(tier, profile)
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -712,7 +743,171 @@ def fused_phase(torch, counters, probe, probe_batch):
                               "act_grad_bytes_ratio",
                               "max_loss_diff_off_nondeterministic_vs_off")}}),
           flush=True)
-    return (off_res, res, noisy_res), fused
+    return (off_res, res, noisy_res), fused, profile
+
+
+# ---------------------- the live runtime over TCP (P, L) -------------------
+
+def tcp_config(profile, transport, kill):
+    """Phase F's int8-fused run as a ``RunConfig``: its workload, profile,
+    spec capacities, cadences and wire tier, on ``transport``."""
+    from repro_torch.run import RunConfig
+    return RunConfig(workload=live_spec(),
+                     live=live_config("int8-fused", profile, kill),
+                     transport=transport)
+
+
+def run_facade(cfg, counters=None):
+    """``Run(cfg)`` to its end (bounded), with the launch counts in
+    ``counters`` set to 0 just before and read just after. Returns
+    (result, wall s, launches)."""
+    from repro_torch.run import Run
+    for fn in (counters or {}).values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = Run(cfg).start().wait(timeout=900)
+    wall = time.perf_counter() - t0
+    return res, wall, {n: fn.launches for n, fn in (counters or {}).items()}
+
+
+def points(res):
+    return [[int(p) for p in pts] for _, pts in res.partitions]
+
+
+def tcp_phase(torch, counters, profile, fused_res, fused):
+    """Phase P: the main path over TCP through the ``Run`` facade, on phase
+    F's int8-fused settings and deterministic cuDNN (the worker processes
+    get these settings from ``run_tcp_training``). Worker 1 SIGKILLs
+    itself at batch 12; then a failure-free TCP run is held against a
+    queue run of the same config."""
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        res, wall, launches = run_facade(tcp_config(profile, "tcp", KILL),
+                                         counters)
+        for t, text in res.events:
+            log(f"  event {t:8.3f}s {text}")
+        losses = [float(v) for v in res.losses]
+        check(res.worker_exitcodes == {1: -9, 2: 0},
+              f"tcp worker exit codes {res.worker_exitcodes}, want "
+              f"{{1: -9, 2: 0}}")
+        check(sorted(res.commit_times) == list(range(NUM_BATCHES)),
+              "tcp: not every batch committed")
+        check(all(math.isfinite(v) for v in losses), "tcp: non-finite loss")
+        first5, last5 = statistics.mean(losses[:5]), statistics.mean(
+            losses[-5:])
+        check(last5 < first5, f"tcp: loss did not decrease ({first5} -> "
+                              f"{last5})")
+        check(len(res.recoveries) == 1
+              and res.recoveries[0]["failed"] == [KILL[0]],
+              f"tcp: recoveries {res.recoveries}")
+        repartitions = sum("re-partition" in text for _, text in res.events)
+        check(repartitions >= 1, "tcp: no re-partition")
+        check(points(res) == points(fused_res),
+              f"tcp partitions {points(res)} differ from phase F's "
+              f"int8-fused run's {points(fused_res)}")
+        check([int(p) for p in res.recoveries[0]["partition"]]
+              == [int(p) for p in fused_res.recoveries[0]["partition"]],
+              "tcp recovery partition differs from phase F's")
+        # worker 0 (stage 0) runs in this process: one K1 (its backward),
+        # one K2 (its act out) and one K3 (the grad in) a batch at least
+        for name, n in launches.items():
+            check(n >= NUM_BATCHES,
+                  f"tcp: {name} launched {n} times in the coordinator "
+                  f"process for {NUM_BATCHES} committed batches")
+        kill_t = [t for t, text in res.events
+                  if text.startswith(f"KILL worker dev{KILL[0]}")]
+        restart = int(res.recoveries[0]["restart"])
+        check(kill_t and restart in res.commit_times,
+              "tcp: no kill event or no commit of the resumed batch")
+        recovery_s = res.commit_times[restart] - kill_t[0]
+        check(res.startup_s is not None, "tcp: no start-up time")
+
+        free_tcp, free_tcp_wall, _ = run_facade(
+            tcp_config(profile, "tcp", None))
+        free_q, free_q_wall, _ = run_facade(
+            tcp_config(profile, "queue", None))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    check(free_tcp.worker_exitcodes == {1: 0, 2: 0} and not
+          free_tcp.recoveries and not free_q.recoveries,
+          f"failure-free runs: exit codes {free_tcp.worker_exitcodes}, "
+          f"recoveries {free_tcp.recoveries} / {free_q.recoveries}")
+    a = [float(v) for v in free_tcp.losses]
+    b = [float(v) for v in free_q.losses]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    log(f"failure-free tcp vs queue: max |loss diff| "
+        f"{max(abs(x - y) for x, y in zip(a, b)):.3g}, max rel {rel:.3g}")
+    check(all(math.isfinite(x) for x in a) and rel <= 1e-5,
+          f"failure-free tcp losses {rel:.3g} (rel) from the queue run's "
+          f"(> 1e-5)")
+    kb = res.transport_stats["kind_bytes"]
+
+    def steady(r):
+        """Batches/s from the first commit to the last (start-up out)."""
+        ct = r.commit_times
+        return (NUM_BATCHES - 1) / (ct[NUM_BATCHES - 1] - ct[0])
+
+    out = {"wire": "tcp, codec int8-fused", "batches": NUM_BATCHES,
+           "wall_s": wall, "batches_per_s": NUM_BATCHES / wall,
+           "queue_batches_per_s_phase_F": fused["batches_per_s"],
+           "startup_s": res.startup_s, "recovery_wall_s": recovery_s,
+           "restart": restart, "partitions": points(res),
+           "received_by_coordinator_bytes": {
+               "act": kb["act"], "grad": kb["grad"],
+               "replica": kb["replica"] + kb["replica_ov"],
+               "control": kb["control"]},
+           "sent_by_coordinator_bytes": res.transport_stats["tx_bytes"],
+           "worker_exitcodes": res.worker_exitcodes,
+           "launches_coordinator_process": launches,
+           "steady_batches_per_s": steady(res),
+           "failure_free": {"tcp_wall_s": free_tcp_wall,
+                            "tcp_startup_s": free_tcp.startup_s,
+                            "tcp_steady_batches_per_s": steady(free_tcp),
+                            "queue_wall_s": free_q_wall,
+                            "queue_steady_batches_per_s": steady(free_q),
+                            "max_rel_loss_diff": rel},
+           "loss_first5": first5, "loss_last5": last5}
+    print(json.dumps({"tcp": out}), flush=True)
+    return out
+
+
+def entry_point_phase():
+    """Phase L: the README's entry point as a user starts it, in its own
+    process group, with a bounded wait (the whole group is killed on
+    timeout, so no worker process outlives the smoke)."""
+    import signal
+    cmd = [sys.executable, "-m", "repro_torch.launch.live_train",
+           "--chain", "mobilenet", "--workers", "3", "--batches", "20",
+           "--kill", "1@8", "--transport", "tcp"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    log("phase L: " + " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure("phase L: the entry point did not finish in "
+                           "300 s")
+    wall = time.perf_counter() - t0
+    for line in out.splitlines():
+        log(f"  | {line}")
+    check(proc.returncode == 0,
+          f"phase L: exit code {proc.returncode}; stderr tail: "
+          f"{err[-2000:]}")
+    check("worker exit codes: {1: -9, 2: 0}" in out,
+          "phase L: the entry point did not report worker exit codes "
+          "{1: -9, 2: 0}")
+    check("recovered: 2 workers" in out, "phase L: no recovery reported")
+    out_line = {"command": " ".join(cmd[1:]), "wall_s": wall,
+                "exit_code": proc.returncode}
+    print(json.dumps({"entry_point": out_line}), flush=True)
+    return out_line
 
 
 # ------------------------- flash attention (K4) --------------------------
@@ -1741,6 +1936,7 @@ def hybrid_phase(torch, fops, sops):
 
 
 def main():
+    t_smoke = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false")
@@ -1820,7 +2016,19 @@ def main():
           "the default data plane launched a quant kernel")
 
     # ---- phase F: the main path on the exact and int8-fused wire ------------
-    f_runs, fused = fused_phase(torch, counters, probe, probe_batches[0])
+    f_runs, fused, f_profile = fused_phase(torch, counters, probe,
+                                           probe_batches[0])
+
+    # ---- phase P: the main path over TCP (Run facade, worker processes) -----
+    t0 = time.perf_counter()
+    tcp_phase(torch, counters, f_profile, f_runs[1], fused)
+    log(f"phase P took {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    # ---- phase L: the entry point, python -m repro_torch.launch.live_train --
+    t0 = time.perf_counter()
+    entry_point_phase()
+    log(f"phase L took {time.perf_counter() - t0:.1f}s")
 
     # ---- phase T: the dense transformer serving path -----------------------
     t_run = transformer_phase(torch, fops)
@@ -1945,6 +2153,7 @@ def main():
         "ms_by_pass": k5_passes,
         "library_note": "no single PyTorch call computes the SSD scan",
         "per_shape": k5_times})
+    log(f"smoke wall time {time.perf_counter() - t_smoke:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

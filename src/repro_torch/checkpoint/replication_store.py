@@ -20,12 +20,21 @@ from repro_torch.runtime.qtensor import host_array
 from repro_torch.core.replication import chain_target, should_chain, should_global
 
 
+def _copy_leaf(a: Any) -> Any:
+    if hasattr(a, "detach"):
+        return a.detach().clone()
+    if isinstance(a, np.ndarray):
+        return a.copy()
+    return a
+
+
 def _snapshot(weights: Any) -> Any:
-    """A new dict structure around the same leaves: the live runtime never
-    writes a stashed or replicated tensor in place (every update builds a
-    new one), so sharing the leaves is as safe as the reference's aliasing
-    of immutable jax arrays."""
-    return tree.map(lambda a: a, weights)
+    """A point-in-time copy of a stage's weights. The reference aliases
+    its leaves, which is a copy there because jax arrays are immutable; a
+    torch tensor can be written in place after the snapshot (the caller
+    of ``maybe_replicate`` is free to), so tensor and numpy leaves are
+    copied."""
+    return tree.map(_copy_leaf, weights)
 
 
 class ReplicatedCheckpointer:

@@ -6,9 +6,10 @@ caller passes ``"cpu"``).
 
 A ``Coordinator`` (the paper's central node) drives N ``Worker``s over a
 transport — in-process queues (``runtime/transport.py``: injectable
-drop/delay/kill faults, optional wire codec) with workers as threads. (The
-reference also runs workers as OS processes over TCP, ``runtime/net.py``;
-that transport is not ported yet.) Each worker owns a contiguous slice of a
+drop/delay/kill faults, optional wire codec) with workers as threads, or
+length-prefixed TCP sockets (``runtime/net.py``) with workers as separate
+OS processes, where fault injection SIGKILLs a real process
+(``Coordinator(remote_devs=...)``). Each worker owns a contiguous slice of a
 ``runtime/workload.py`` layer chain, held as ONE packed flat f32 buffer
 (``runtime/stage_executor.py``), and executes REAL per-stage training
 through ``StageExecutor.step`` (forward recompute, autograd backward,
@@ -315,6 +316,9 @@ class LiveResult:
     #   reported FULLY shipped (its overlap queue drained) — the
     #   coordinator's in-flight-replication bookkeeping, piggybacked on
     #   seg_done; empty in drain mode
+    startup_s: Optional[float] = None
+    #   seconds from spawning the worker processes to the coordinator
+    #   hearing from the last of them (net.run_tcp_training only)
 
     @property
     def final_partition(self) -> tuple:
@@ -1610,8 +1614,9 @@ class Coordinator:
     def _await_remote_workers(self, optional: bool = False,
                               timeout: Optional[float] = None) -> set:
         """Block until every own-process worker has been heard from (its
-        ``hello`` or first heartbeat) — their interpreters cold-start JAX,
-        so this gate keeps segment 0 from racing the cluster bring-up.
+        ``hello`` or first heartbeat) — their interpreters cold-start
+        torch and CUDA, so this gate keeps segment 0 from racing the
+        cluster bring-up.
         Returns the devices heard. ``optional`` (coordinator relaunch):
         a no-show is not fatal — the caller shrinks the worker list to
         the survivors instead of refusing to come back up."""

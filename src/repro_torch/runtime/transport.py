@@ -206,9 +206,12 @@ class TransportBase(abc.ABC):
             return Transport(fault, codec=codec, policy=policy,
                              reliable=reliable, rto=rto, netem=netem, **kw)
         if kind == "tcp":
-            raise NotImplementedError(
-                "the tcp transport needs runtime/net.py, which the torch "
-                "port has not ported yet (ROADMAP.md, Queue 1: net.py)")
+            from repro_torch.runtime.net import SocketTransport
+            if addr_of is None or local is None:
+                raise ValueError("tcp transport needs addr_of and local")
+            return SocketTransport(addr_of, local, fault, policy=policy,
+                                   reliable=reliable, rto=rto, netem=netem,
+                                   **kw)
         raise ValueError(f"unknown transport kind {kind!r} "
                          f"(expected 'queue' or 'tcp')")
 

@@ -169,8 +169,22 @@ def test_quant_raises_instead_of_falling_back():
 
 
 def test_tcp_transport_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="net.py"):
-        transport.Transport.create("tcp", addr_of={}, local=(0, 0))
+    """The tcp factory once raised NotImplementedError (net.py unported).
+    Now it builds the port's SocketTransport from ``addr_of``/``local``
+    and raises ValueError without them."""
+    from repro_torch.runtime import net
+    with pytest.raises(ValueError, match="addr_of and local"):
+        transport.Transport.create("tcp")
+    with pytest.raises(ValueError, match="addr_of and local"):
+        transport.Transport.create("tcp", addr_of={0: ("127.0.0.1", 1)})
+    addr_of = net.cluster_addresses(2)
+    t = transport.Transport.create("tcp", addr_of=addr_of,
+                                   local=(live.COORD, 0), reliable=True)
+    try:
+        assert isinstance(t, net.SocketTransport) and t.is_networked
+        assert t.local == (live.COORD, 0) and t._rel_on
+    finally:
+        t.close()
 
 
 def test_int8_fused_tier_is_accepted():

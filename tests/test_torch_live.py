@@ -18,6 +18,9 @@ What must match, and how closely:
     applied updates of batches that were never committed, and how many
     depends on thread timing, so the two runs legitimately part ways.
 """
+import dataclasses
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -47,10 +50,18 @@ def _points(parts):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def measured():
+    """The JAX package's mlp chain, its data and its measured profile: both
+    runs of ``runs`` (and the simulator's prediction) use this profile."""
     ref_chain = ref_wl.mlp_chain(jax.random.PRNGKey(0), num_layers=8)
     ref_data = ref_wl.classification_batches("mlp", 8, batch=16, seed=0)
-    prof = ref_chain.measure_profile(ref_data[0], repeats=2)
+    return ref_chain, ref_data, ref_chain.measure_profile(ref_data[0],
+                                                          repeats=2)
+
+
+@pytest.fixture(scope="module")
+def runs(measured):
+    ref_chain, ref_data, prof = measured
     ref = ref_live.run_live_training(ref_chain, ref_data, ref_live.LiveConfig(
         num_workers=3, num_batches=B, protocol=RefProtocol(**PROTO), lr=0.1,
         device_specs=[RefDeviceSpec(n, c) for n, c in CAPS],
@@ -147,3 +158,142 @@ def test_fused_tier_ships_fewer_act_and_grad_bytes(fused_runs):
     assert kb1["act"] + kb1["grad"] < 0.6 * (kb0["act"] + kb0["grad"])
     assert kb1["act"] < kb0["act"] and kb1["grad"] < kb0["grad"]
     assert kb0["control"] > 0 and kb1["control"] > 0
+
+
+
+# ------------------- the simulator's prediction (item 15) -----------------
+
+@pytest.mark.live
+def test_post_recovery_partition_matches_simulator_prediction(runs, measured):
+    """The port's live run lands on the recovery partition that the port's
+    ``PipelineSimulator`` predicts for the same failure, specs and profile
+    (after ``tests/test_live_runtime.py``): both run the same
+    ``runtime/protocol.py`` decisions."""
+    from repro_torch.runtime.simulator import PipelineSimulator, SimConfig
+    _, port = runs
+    prof = measured[2]
+    proto = ProtocolConfig(**PROTO)
+    pred = PipelineSimulator(SimConfig(
+        devices=[DeviceSpec(n, c) for n, c in CAPS],
+        profile=WorkloadProfile(prof.fwd_times, prof.bwd_times,
+                                prof.out_bytes, prof.weight_bytes),
+        bandwidth=uniform_bandwidth(3, 1e9), num_batches=B,
+        chain_every=proto.chain_every, global_every=proto.global_every,
+        repartition_first_at=proto.repartition_first_at,
+        repartition_every=proto.repartition_every)).run(fail=(1, 15))
+    sim_points = _points(pred.partitions)
+    assert len(port.recoveries) == 1
+    assert _points(port.partitions)[-1] == sim_points[-1]
+    assert tuple(int(p) for p in port.recoveries[0]["partition"]) \
+        == sim_points[-1]
+
+
+# ------------- live features held against the reference (item 14) ---------
+
+def _fixed_profile(num_layers=8):
+    """With spec capacities every control decision is a pure function of
+    the config, so both packages must decide alike."""
+    return dict(fwd_times=np.full(num_layers, 1e-3),
+                bwd_times=np.full(num_layers, 2e-3),
+                out_bytes=np.full(num_layers, 1024.0),
+                weight_bytes=np.full(num_layers, 2048.0))
+
+
+_PROTECT = ("hb", "hello", "install", "abort", "segment", "seg_done",
+            "commit", "loss", "replicate", "replicated", "chain_put",
+            "global_put", "fetch_req", "fetch_res", "repart", "recover",
+            "ready", "probe", "probe_ack", "stop")
+_WAN = {"default": {"latency": 0.003, "jitter": 0.001, "rate": 4e7},
+        "seed": 3}
+
+# feature -> (LiveConfig overrides, protocol overrides); "netem" and
+# "fault" are built per package from the plain values here
+FEATURES = {
+    "overlap_replication": (dict(overlap_replication=True), {}),
+    "rejoin": (dict(kill=(1, 6), rejoin=(1, 10), join_wait=30,
+                    num_batches=18), dict(repartition_first_at=5)),
+    "fp16": (dict(wire_codec=True, wire_compress="fp16"), {}),
+    "int8": (dict(wire_codec=True, wire_compress="int8"), {}),
+    "netem": (dict(netem=_WAN), dict(repartition_first_at=5)),
+    "reliable_wire": (dict(reliable_data=True, rto=0.05,
+                           fault=dict(drop=0.15, seed=5, protect=_PROTECT)),
+                      {}),
+}
+
+
+def _feature_cfg(pkg, feature):
+    """(LiveConfig, FaultSpec, NetemSpec classes...) of one package ->
+    the feature's config: 3 workers with spec capacities (1, 1, 2) and a
+    fixed profile, after ``tests/test_overlap.py::_det_cfg``."""
+    live_mod, proto_cls, dev_mod, transport_mod, netem_mod = pkg
+    kw, pkw = FEATURES[feature]
+    kw = dict(kw)
+    if "fault" in kw:
+        kw["fault"] = transport_mod.FaultSpec(**kw["fault"])
+    if "netem" in kw:
+        kw["netem"] = netem_mod.NetemSpec.from_json(json.dumps(kw["netem"]))
+    proto = dict(chain_every=4, global_every=8, repartition_first_at=10_000,
+                 repartition_every=10_000, detect_timeout=2.0)
+    proto.update(pkw)
+    d = dict(num_workers=3, num_batches=12, protocol=proto_cls(**proto),
+             lr=0.1,
+             device_specs=[dev_mod.DeviceSpec("central", 1.0),
+                           dev_mod.DeviceSpec("peer", 1.0),
+                           dev_mod.DeviceSpec("slow", 2.0)],
+             bandwidth=dev_mod.uniform_bandwidth(3, 1e9),
+             profile=dev_mod.WorkloadProfile(**_fixed_profile()),
+             capacity_source="spec")
+    d.update(kw)
+    return live_mod.LiveConfig(**d)
+
+
+@pytest.mark.live
+@pytest.mark.parametrize("feature", sorted(FEATURES))
+def test_live_feature_matches_reference(feature):
+    """One live feature on both packages from the JAX package's weights:
+    the same partitions, recoveries and admissions; losses up to the
+    restart (all of them without a failure) within rtol 1e-4, atol 1e-5;
+    every batch finite."""
+    from repro.runtime import devices as ref_dev
+    from repro.runtime import netem as ref_netem
+    from repro.runtime import transport as ref_transport
+    from repro_torch.runtime import devices as dev
+    from repro_torch.runtime import netem
+    from repro_torch.runtime import transport
+    ref_chain = ref_wl.mlp_chain(jax.random.PRNGKey(0), num_layers=8)
+    ref_data = ref_wl.classification_batches("mlp", 8, batch=16, seed=0)
+    ref = ref_live.run_live_training(ref_chain, ref_data, _feature_cfg(
+        (ref_live, RefProtocol, ref_dev, ref_transport, ref_netem),
+        feature))
+    chain = wl.mlp_chain(torch.Generator().manual_seed(0), num_layers=8)
+    chain.load_flat_params(
+        {j: np.asarray(f) for j, f in ref_chain.flat_params().items()})
+    data = wl.classification_batches("mlp", 8, batch=16, seed=0)
+    cfg = _feature_cfg((live, ProtocolConfig, dev, transport, netem),
+                       feature)
+    port = live.run_live_training(chain, data,
+                                  dataclasses.replace(cfg, device="cpu"))
+    assert _points(port.partitions) == _points(ref.partitions)
+    for key in ("failed", "partition"):
+        assert [tuple(map(int, r[key])) for r in port.recoveries] == \
+            [tuple(map(int, r[key])) for r in ref.recoveries]
+    for key in ("devs", "incs", "partition"):
+        assert [tuple(map(int, a[key])) for a in port.admissions] == \
+            [tuple(map(int, a[key])) for a in ref.admissions]
+    restart = min([r["restart"] for r in (*ref.recoveries,
+                                          *port.recoveries)]
+                  + [len(ref.losses)])
+    np.testing.assert_allclose(port.losses[:restart], ref.losses[:restart],
+                               rtol=1e-4, atol=1e-5)
+    for res in (ref, port):
+        assert np.isfinite(res.losses).all()
+    if feature == "rejoin":
+        assert port.admissions and port.admissions[0]["devs"] == [1]
+        assert len(port.final_partition) == 3
+    if feature == "reliable_wire":
+        assert port.transport_stats["retransmits"] > 0
+        assert not [e for _, e in port.events if "transient stall" in e]
+    if feature in ("fp16", "int8"):
+        kb, rkb = (port.transport_stats["kind_bytes"],
+                   ref.transport_stats["kind_bytes"])
+        assert kb["act"] == rkb["act"] and kb["grad"] == rkb["grad"]

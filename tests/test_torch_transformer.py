@@ -308,19 +308,32 @@ def test_pad_slot_is_identity_and_promotes_like_jax():
 
 # --------------------------------- model ---------------------------------
 
-@pytest.mark.parametrize("arch,flash", [("qwen2-1.5b", 0), ("qwen2-1.5b", 1),
-                                        ("llama3-8b", 0), ("llama3-8b", 1),
-                                        ("zamba2-7b", 0), ("zamba2-7b", 1)])
+@pytest.mark.parametrize("arch,flash", [
+    (arch, flash) for arch in ("qwen2-1.5b", "llama3-8b", "zamba2-7b",
+                               "chatglm3-6b", "granite-3-8b",
+                               "llava-next-mistral-7b")
+    for flash in (0, 1)])
 def test_sequential_lm_forward(arch, flash):
+    """Logits and loss mask against the JAX package's: chatglm3-6b rotates
+    half of each head (``rope_fraction=0.5``) with qkv biases, and the vlm
+    (llava-next-mistral-7b) runs a 12-token patch prefix through
+    ``embed(prefix=...)``."""
     jcfg, cfg = _cfgs(arch, num_layers=4, use_flash_attention=flash)
     jp, p = _both(_draw(lambda k: JM.init_params(k, jcfg), 3))
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
-    want, _, wmask = jax.jit(lambda p_, t_: JM.sequential_lm_forward(
-        p_, jcfg, t_))(jp, jnp.asarray(toks))
-    got, aux, mask = M.sequential_lm_forward(p, cfg, torch.from_numpy(toks))
-    assert tuple(got.shape) == (2, 40, cfg.vocab_size) and aux == 0.0
+    pre = (_x((2, 12, cfg.d_model), 9),) if cfg.family == "vlm" else ()
+    want, _, wmask = jax.jit(lambda p_, t_, *x_: JM.sequential_lm_forward(
+        p_, jcfg, t_, prefix=x_[0] if x_ else None))(
+            jp, jnp.asarray(toks), *map(jnp.asarray, pre))
+    got, aux, mask = M.sequential_lm_forward(
+        p, cfg, torch.from_numpy(toks),
+        prefix=torch.from_numpy(pre[0]) if pre else None)
+    S = 40 + (12 if pre else 0)
+    assert tuple(got.shape) == (2, S, cfg.vocab_size) and aux == 0.0
     _close(got, want)
     _close(mask, wmask, 0)
+    if pre:
+        assert float(mask[:, :12].abs().sum()) == 0.0
 
 
 def test_sequential_decode_steps_match_jax():
