@@ -64,7 +64,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      S=1000 ragged causal, S=2048 with a 256 window, S=1000 non-causal,
      a 512-row chunk at q_offset 1536 over 2048 keys, and at zamba2-7b's
      heads (H=Hkv=32, dh=112) B=4, S=2048 causal and B=1, S=32 causal
-     (fewer rows than a block), each in f32, bf16 and bf16 q over f32
+     (fewer rows than a block), at olmoe-1b-7b's (H=Hkv=16, dh=128) B=4,
+     S=2048 causal and at whisper-base's encoder (H=Hkv=8, dh=64) B=4,
+     1,500 frames non-causal, each in f32, bf16 and bf16 q over f32
      k/v; and dh=32, 64 at small sizes in those and f32 q over bf16 k/v;
      then on the strided views the model passes: q, k, v as ``[B, S,
      heads, dh].transpose(1, 2)`` (qwen2's and zamba2's S=2048 causal),
@@ -115,6 +117,40 @@ Phases, each fatal on failure (exit code 1, no result line):
      the kernel prefill against 32 decode steps from an empty cache,
      within 1e-3; (iv) ``ServingEngine`` (4 slots, cache 64) answers 6
      greedy requests of 8 new tokens, held as in T (iii), no kernel;
+  M. the MoE serving path at the full width of olmoe-1b-7b (16 layers,
+     d=2048, 16 heads of 128, 64 experts of d_ff 1024, top-8, capacity
+     factor 1.25, vocab 50,304; 6.92 B parameters, random from seed 0):
+     (i) prefill at B=4, S=2048 with K4 against the plain attention, in
+     f32 and bf16, 16 K4 launches a forward (route 2 in f32, route 1 in
+     bf16). The router runs on what K4 touched, so a near-tied token can
+     take other experts in the two runs: the routes that differ are
+     counted. With none, the logits are held as in T; with some, slot by
+     slot (each slot's kernel and plain versions on the same input): the
+     router probabilities over every token within ``MOE_PROB_TOL``, and
+     the other tokens' updates within 1e-3 max abs (f32) or 2e-2 rel L2
+     (bf16), the bf16 forward no farther from plain than from f32, as in
+     Z; aux finite; (ii) at capacity factor 8 (nothing dropped) 4 chunks
+     of 512 (64 K4 launches) + 8 decode steps within 1e-3 of a kernel
+     forward; (iii) ``ServingEngine`` (4 slots, cache 128) answers 8
+     requests of 16, held as in T (iii);
+  X. the xLSTM serving path at the full width of xlstm-125m (12 layers,
+     4 stages of (mLSTM, sLSTM, mLSTM), d=768, 4 heads, expand 2): (i)
+     prefill at B=4, S=2048 in f32 and bf16, no K4 launch, the sLSTM
+     layers' share of a synchronised bf16 forward printed; (ii) 4 chunks
+     of 512 + 8 decode steps, each slot's chunk and step outputs within
+     1e-3 of its parallel form on the same input, the logits within 1e-2
+     of the f32 forward (``XLSTM_WHOLE_MODEL_TOL`` says why); (iii)
+     ``ServingEngine`` (4 slots, cache 64) answers 6 requests of 8, held
+     as in T (iii) against a standalone decode at batch 4, and the two
+     requests admitted into reused slots give a fresh engine's tokens;
+  W. the Whisper path at the full width of whisper-base (6 encoder and 6
+     decoder layers, d=512, 8 heads of 64, d_ff 2048, vocab 51,865):
+     frames [4, 1500, 512] from numpy (seed 0), the decoder over 448
+     tokens; (i) ``sequential_encdec_forward`` with K4 against the plain
+     attention, f32 <= 1e-3, bf16 rel L2 <= 2e-2, 12 K4 launches a
+     forward (6 non-causal over the 1,500 frames, 6 causal over 448;
+     cross-attention takes the plain path, as in the JAX package); (ii)
+     16 decode steps with ``kv_source`` within 1e-3 of the f32 forward;
   4. K1 again at every stage-slice size the run used, then each kernel's
      time beside its bound, its plain version's and, where one PyTorch
      call computes the same function, that call's (K1:
@@ -126,10 +162,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      as it may contract into an FMA; yardsticks the port never calls; no
      single PyTorch call computes K2 or K5), and for K2 and K3 the
      wrapper's host time a call (1,000 calls, no sync). K4 is timed in bf16 (route 1)
-     at every phase-A shape, and in f32 (route 2) at the five shapes the
+     at every phase-A shape, and in f32 (route 2) at the seven shapes the
      serving paths launch it at (qwen2's top shape and its 512-row chunk
      at q_offset 1536, zamba2's top shape, its last 512-row chunk over the
-     2,056-row cache, and its B=1, S=32 prefill) beside the library call
+     2,056-row cache, its B=1, S=32 prefill, olmoe's prefill and
+     Whisper's encoder) beside the library call
      in f32 with TF32 off, each beside its f32 (CUDA-core) and 3xTF32
      (tensor-core) bound.
 
@@ -141,6 +178,7 @@ non-zero without them, or when ``src/repro_torch`` is not beside it.
 import concurrent.futures
 import contextlib
 import ctypes
+import gc
 import json
 import math
 import os
@@ -168,6 +206,27 @@ SSD_BF16_REL_L2 = 1e-2
 # the "model" draw of phase S (y up to ~10^2): relative L2 only
 SSD_MODEL_REL_L2 = 1e-5
 ZAMBA2_PARAMETERS = 11_003_722_752     # jax.eval_shape of the JAX init
+OLMOE_PARAMETERS = 6_919_096_320       # the same, at tensor_parallel=1
+XLSTM_PARAMETERS = 183_635_744
+WHISPER_PARAMETERS = 97_287_168
+# phase M: the largest |router probability difference| between the kernel
+# and the plain slot on the same input (f32: the attention's rounding,
+# ~1e-8; bf16: one bf16 spacing of the router's input moves a logit by
+# ~1e-2 at most)
+MOE_PROB_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+WHISPER_DECODE_STEPS = 16
+# phase X. At random weights an mLSTM slot amplifies rounding ~500x (its
+# group norm rescales rows whose spread differs 8,000x;
+# tests/test_torch_xlstm.py), so two computations of the same logits in
+# another order (a batch of 1 and of 4, the chunk and the parallel form)
+# land up to ~2e-3 apart over 12 layers, by an amount that varies from
+# one run to the next (0.76-0.91e-3 and 0.86-2.06e-3 measured). So the
+# engine is held against a standalone decode at its own batch shape
+# (every xLSTM operation is row-independent), and chunked prefill +
+# decode slot by slot on the same input (``slot_chunk_updates``), each
+# within the other phases' limits; the whole model within 1e-2, a
+# fault's size (a lost carry moves it by O(0.1))
+XLSTM_WHOLE_MODEL_TOL = 1e-2
 PREFILL_B, PREFILL_S, CHUNK, DECODE_STEPS = 4, 2048, 512, 8
 LR, MOMENTUM, WEIGHT_DECAY = 0.005, 0.9, 4e-5
 NUM_BATCHES, KILL = 30, (1, 12)
@@ -186,6 +245,14 @@ def check(ok, what):
 
 def log(msg):
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def free_card(torch):
+    """Release a finished phase's tensors: objects in reference cycles
+    (a phase's closures and engine subclass) wait for the cycle collector,
+    which may not have run when the next phase allocates its model."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def card_line():
@@ -914,15 +981,19 @@ def entry_point_phase():
 
 def flash_shapes():
     """(B, H, Hkv, Sq, Skv, dh, causal, window, q_offset) of phase A: the
-    dense slice's shapes at qwen2-1.5b's heads and the hybrid slice's at
-    zamba2-7b's (H = Hkv = 32, dh = 112), then the smaller head dims."""
+    dense slice's shapes at qwen2-1.5b's heads, the hybrid slice's at
+    zamba2-7b's (H = Hkv = 32, dh = 112), olmoe-1b-7b's prefill (H = Hkv =
+    16, dh = 128) and whisper-base's encoder (H = Hkv = 8, dh = 64, 1,500
+    frames, non-causal: a ragged key count without a causal mask), then
+    the smaller head dims."""
     H, Hkv, dh = 12, 2, 128
     big = [(4, H, Hkv, 2048, 2048, dh, True, 0, 0),
            (4, H, Hkv, 1000, 1000, dh, True, 0, 0),
            (4, H, Hkv, 2048, 2048, dh, True, 256, 0),
            (4, H, Hkv, 1000, 1000, dh, False, 0, 0),
            (4, H, Hkv, 512, 2048, dh, True, 0, 1536),
-           (4, 32, 32, 2048, 2048, 112, True, 0, 0)]   # zamba2-7b's
+           (4, 32, 32, 2048, 2048, 112, True, 0, 0),   # zamba2-7b's
+           OLMOE_PREFILL, WHISPER_ENCODER]
     small = [(2, 4, 2, 200, 200, d, True, 64, 0) for d in (32, 64)]
     small += [(2, 4, 2, 130, 130, d, False, 0, 0) for d in (32, 64)]
     return big, small
@@ -930,18 +1001,21 @@ def flash_shapes():
 
 # zamba2-7b's B=1, 32-token prefill (phase Z (iii)): fewer rows than a block
 ZAMBA2_SHORT = (1, 32, 32, 32, 32, 112, True, 0, 0)
+# phase M's and phase W's encoder shapes
+OLMOE_PREFILL = (4, 16, 16, 2048, 2048, 128, True, 0, 0)
+WHISPER_ENCODER = (4, 8, 8, 1500, 1500, 64, False, 0, 0)
 
 
 def route2_shapes():
     """The shapes the serving paths launch route 2 (f32) at: qwen2's
     prefill and its last 512-row chunk (q_offset 1536, over 2048 keys),
     zamba2's prefill, its last chunk (over the 2,056-row cache that
-    ``chunk_attention`` hands the kernel whole), and its B=1, S=32
-    prefill."""
+    ``chunk_attention`` hands the kernel whole), its B=1, S=32 prefill,
+    olmoe's prefill and Whisper's encoder."""
     big = flash_shapes()[0]
     return [big[0], big[4], big[5],
             (4, 32, 32, 512, PREFILL_S + DECODE_STEPS, 112, True, 0, 1536),
-            ZAMBA2_SHORT]
+            ZAMBA2_SHORT, OLMOE_PREFILL, WHISPER_ENCODER]
 
 
 def describe(shape):
@@ -1150,10 +1224,11 @@ def prefill_chunks(params, cfg, tokens, caches, chunk):
 
 
 def serve_and_check(params, cfg, prompts, new_tokens, cache_len,
-                    counters, torch):
+                    counters, torch, standalone_batch=1):
     """``ServingEngine`` with 4 slots answers ``prompts`` greedily, f32.
     Each engine step's logits row of a request is held within 1e-4 of a
-    standalone ``sequential_decode_step`` (batch 1) fed the same tokens,
+    standalone ``sequential_decode_step`` fed the same tokens (at batch
+    ``standalone_batch``, the tokens in every row; row 0 is compared),
     and the engine's token must be the standalone's argmax wherever the
     top-2 logit gap exceeds 1e-3 (below that, rounding may flip a
     near-tie). The launch counts in ``counters`` are set to 0 just before
@@ -1192,15 +1267,16 @@ def serve_and_check(params, cfg, prompts, new_tokens, cache_len,
     worst, min_gap, n_checked = 0.0, float("inf"), 0
     with torch.no_grad():
         for p, u in zip(prompts, uids):
-            caches = M.init_caches(cfg, batch=1, cache_len=cache_len,
+            caches = M.init_caches(cfg, batch=standalone_batch,
+                                   cache_len=cache_len,
                                    dtype=torch.float32, device="cuda")
             fed = p + out[u][:-1]
             rows = eng.rows[u]
             check(len(rows) == len(fed), f"request {u}: {len(rows)} steps "
                   f"for {len(fed)} tokens")
             for pos, tok in enumerate(fed):
-                lg, caches = M.sequential_decode_step(params, cfg, [[tok]],
-                                                      caches, pos)
+                lg, caches = M.sequential_decode_step(
+                    params, cfg, [[tok]] * standalone_batch, caches, pos)
                 row = lg[0, 0]
                 worst = max(worst, (row - rows[pos]).abs().max().item())
                 k = pos - (len(p) - 1)
@@ -1220,7 +1296,7 @@ def serve_and_check(params, cfg, prompts, new_tokens, cache_len,
     return {"s": serve_s, "generated_per_s": generated / serve_s,
             "fed_per_s": fed_total / serve_s, "worst": worst,
             "min_gap": min_gap, "checked": n_checked,
-            "launches": launches}
+            "launches": launches, "tokens": [out[u] for u in uids]}
 
 
 def transformer_phase(torch, fops):
@@ -1935,6 +2011,716 @@ def hybrid_phase(torch, fops, sops):
     return summary
 
 
+# ----------------------- the MoE slice (M): olmoe-1b-7b -------------------
+
+@contextlib.contextmanager
+def recorded_routes(store):
+    """Every ``moe.route`` call's router probabilities and top-k experts,
+    appended to ``store`` in call order (one entry a MoE layer). The
+    smoke's recorder: the package reads no switch for it."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recording(p, xt, k):
+        out = route(p, xt, k)
+        store.append((out[0], out[2]))
+        return out
+
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def route_diff(a, b, cfg):
+    """Two runs' recorded routes of one MoE layer: (routes whose expert
+    differs, [T] mask of the tokens whose experts or drops differ, the
+    largest |router probability difference|). Drops are the package's
+    own rule (``moe.dispatch``) at this layer's capacity."""
+    from repro_torch.models import moe
+    (pa, ea), (pb, eb) = a, b
+    T, k = ea.shape
+    C = moe.capacity(T, cfg)
+    ka, kb = (moe.dispatch(e, cfg.num_experts, C)[0].reshape(T, k)
+              for e in (ea, eb))
+    hit = ((ea != eb) | (ka != kb)).any(dim=-1)
+    return int((ea != eb).sum()), hit, (pa - pb).abs().max().item()
+
+
+def routes_diff(ra, rb, cfg):
+    """Whole-forward ``route_diff``: (routes that differ over all layers,
+    (layer, token) pairs whose experts or drops differ, largest |router
+    probability difference|)."""
+    n_routes, n_tokens, dprob = 0, 0, 0.0
+    for a, b in zip(ra, rb):
+        r, hit, dp = route_diff(a, b, cfg)
+        n_routes, n_tokens = n_routes + r, n_tokens + int(hit.sum())
+        dprob = max(dprob, dp)
+    return n_routes, n_tokens, dprob
+
+
+def moe_slot_updates(params, cfg, tokens):
+    """``cfg``'s forward slot by slot: each ``Moe`` slot with K4 against the
+    plain slot (``use_flash_attention=0``) on the same input, the kernel
+    slot's output feeding the next. A token whose routes or drops differ
+    between the two (a near-tie of the router flipped by the attention's
+    rounding) is counted and left out; over the others, the updates
+    (output - input) differ by ``err``: the largest |difference| in f32,
+    the largest relative L2 over a slot in bf16. The router probabilities,
+    which are continuous, are held over every token (``dprob``). Launches
+    here are comparisons, not counted."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import modules
+    from repro_torch.models.blocks import BLOCKS, BlockCtx
+    dtype = modules.dtype_of(cfg.dtype)
+    x, positions, _ = M.embed(params, cfg, tokens, dtype=dtype)
+    pm = M.pad_mask(cfg, device=x.device)
+    plain = cfg.with_overrides(use_flash_attention=0)
+    out = {"err": 0.0, "routes": 0, "tokens": 0, "dprob": 0.0,
+           "of_tokens": 0}
+    for s in range(cfg.pipeline_stages):
+        for j, t in enumerate(cfg.slot_layout):
+            p = M._slot_params(params["blocks"][j], s)
+            ra, rb = [], []
+            with recorded_routes(ra):
+                y, _ = BLOCKS[t].apply(p, x, BlockCtx(
+                    cfg=cfg, positions=positions, dtype=dtype,
+                    active=pm[s, j]))
+            with recorded_routes(rb):
+                yp, _ = BLOCKS[t].apply(p, x, BlockCtx(
+                    cfg=plain, positions=positions, dtype=dtype,
+                    active=pm[s, j]))
+            r, hit, dp = route_diff(ra[0], rb[0], cfg)
+            same = ~hit.reshape(x.shape[:2])
+            du = (y.float() - x.float())[same]
+            dpl = (yp.float() - x.float())[same]
+            err = ((du - dpl).abs().max().item() if dtype == torch.float32
+                   else ((du - dpl).norm() / dpl.norm()).item())
+            out["err"] = max(out["err"], err)
+            out["dprob"] = max(out["dprob"], dp)
+            out["routes"] += r
+            out["tokens"] += int(hit.sum())
+            out["of_tokens"] += hit.numel()
+            x = y
+    return out
+
+
+def moe_phase(torch, fops):
+    """Phase M: prefill, chunked prefill + decode, and serving, at the full
+    width of olmoe-1b-7b on the card. Returns its summary."""
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import model as M
+    K = fops.flash_attention_kernel
+    t_phase = time.perf_counter()
+    cfg = get_config("olmoe-1b-7b").with_overrides(tensor_parallel=1,
+                                                   use_flash_attention=1)
+    check(cfg.num_layers == 16 and cfg.d_model == 2048
+          and cfg.num_heads == cfg.num_kv_heads == 16 and cfg.head_dim == 128
+          and cfg.num_experts == 64 and cfg.moe_top_k == 8
+          and cfg.d_ff == 1024 and cfg.vocab_size == 50_304
+          and cfg.capacity_factor == 1.25 and cfg.pipeline_stages == 4
+          and cfg.slot_layout == ("moe",) * 4,
+          f"olmoe-1b-7b at its published widths: {cfg}")
+    cfg32 = cfg.with_overrides(dtype="float32")
+    n_slots = cfg.pipeline_stages * cfg.layers_per_stage
+    params = M.init_params(0, cfg, device="cuda")
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    check(n_params == OLMOE_PARAMETERS, f"{n_params:,} parameters, not "
+          f"{OLMOE_PARAMETERS:,}")
+    lm = SyntheticLM(vocab_size=cfg.vocab_size, seed=0)
+    toks, _ = lm.sample(np.random.default_rng(0), PREFILL_B,
+                        PREFILL_S + DECODE_STEPS)
+    tokens = torch.as_tensor(toks, device="cuda")
+    prompt = tokens[:, :PREFILL_S]
+    log(f"{cfg.name}: {n_params:,} parameters (f32), {n_slots} moe slots "
+        f"of {cfg.num_experts} experts, top-{cfg.moe_top_k}, capacity "
+        f"factor {cfg.capacity_factor}; prompts [{PREFILL_B}, {PREFILL_S}] "
+        f"from SyntheticLM")
+    summary = {"config": f"{cfg.name} tensor_parallel=1 "
+                         f"use_flash_attention=1", "parameters": n_params}
+
+    def forward(c, toks_):
+        """(logits, aux, recorded routes, K4 launches, of them on route 1)
+        of one sequential_lm_forward; the counts are set to 0 just
+        before, read just after."""
+        reset_k4(K)
+        routes = []
+        with recorded_routes(routes):
+            logits, aux, _ = M.sequential_lm_forward(params, c, toks_)
+        torch.cuda.synchronize()
+        return logits, aux, routes, K.launches, K.launches_route1
+
+    def rel_l2(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    with torch.no_grad():
+        # ---- (i) prefill: K4 against the plain attention path ----------
+        t0 = time.perf_counter()
+        kern, aux, rk, n, r1_f32 = forward(cfg32, prompt)
+        prefill32_s = time.perf_counter() - t0
+        plain, _, rp, n0, _ = forward(
+            cfg32.with_overrides(use_flash_attention=0), prompt)
+        check(n == n_slots and r1_f32 == 0 and n0 == 0,
+              f"f32 prefill: {n} K4 launches with flash ({r1_f32} on route "
+              f"1), {n0} without")
+        check(bool(torch.isfinite(kern).all()) and math.isfinite(float(aux)),
+              "non-finite f32 logits or aux")
+        err = (kern - plain).abs().max().item()
+        flips, hit, dprob = routes_diff(rk, rp, cfg32)
+        log(f"(i) f32 prefill B={PREFILL_B} S={PREFILL_S}: max |logit "
+            f"flash - plain| {err:.3g}; routes that differ {flips} of "
+            f"{n_slots * PREFILL_B * PREFILL_S * cfg.moe_top_k} ((layer, "
+            f"token) pairs with other experts or drops: {hit}), largest "
+            f"|router prob difference| {dprob:.3g}; aux {float(aux):.4f}; "
+            f"K4 launches {n}; {prefill32_s * 1e3:.1f} ms (the phase's "
+            f"first forward)")
+        summary.update(prefill_f32_max_abs_diff=err,
+                       prefill_f32_routes_differing=flips,
+                       prefill_f32_tokens_differing=hit,
+                       prefill_f32_router_prob_max_diff=dprob,
+                       prefill_f32_ms=prefill32_s * 1e3, aux_f32=float(aux))
+        if flips == 0 and hit == 0:
+            check(err <= 1e-3, f"f32 prefill logits differ by {err} "
+                  f"(> 1e-3) with the same routes")
+        else:
+            sl = moe_slot_updates(params, cfg32, prompt)
+            log(f"(i) f32 slot by slot: routes differing {sl['routes']}, "
+                f"tokens left out {sl['tokens']} of {sl['of_tokens']}, "
+                f"the others' updates within {sl['err']:.3g}, router "
+                f"probabilities within {sl['dprob']:.3g}")
+            check(sl["err"] <= 1e-3 and sl["dprob"] <= MOE_PROB_TOL[
+                "float32"], f"f32 slot by slot: updates {sl['err']} "
+                f"(> 1e-3) or router probabilities {sl['dprob']} (> "
+                f"{MOE_PROB_TOL['float32']}) apart")
+            summary.update(prefill_f32_slot_max_abs_diff=sl["err"],
+                           prefill_f32_slot_router_prob_max_diff=sl["dprob"],
+                           prefill_f32_slot_routes_differing=sl["routes"],
+                           prefill_f32_slot_tokens_left_out=sl["tokens"])
+        kern32 = kern
+        del plain, rk, rp
+        forward(cfg, prompt)                               # warm-up
+        t0 = time.perf_counter()
+        kern, aux16, rk, n16, r1_bf16 = forward(cfg, prompt)
+        prefill_s = time.perf_counter() - t0
+        plain, _, rp, n0, _ = forward(
+            cfg.with_overrides(use_flash_attention=0), prompt)
+        check(n16 == r1_bf16 == n_slots and n0 == 0,
+              f"bf16 prefill: {n16} K4 launches with flash ({r1_bf16} on "
+              f"route 1), {n0} without")
+        check(bool(torch.isfinite(kern).all())
+              and math.isfinite(float(aux16)), "non-finite bf16 logits/aux")
+        rel = rel_l2(kern, plain)
+        rel_f32 = rel_l2(kern, kern32)
+        top1 = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+        flips16, hit16, dprob16 = routes_diff(rk, rp, cfg)
+        log(f"(i) bf16 prefill: rel L2 {rel:.3g} from the plain forward "
+            f"(the f32 forward {rel_f32:.3g} away), top-1 agreement "
+            f"{top1:.4f}; routes that differ {flips16}, (layer, token) "
+            f"pairs {hit16}; {PREFILL_B * PREFILL_S / prefill_s:,.0f} "
+            f"tokens/s ({prefill_s * 1e3:.1f} ms)")
+        summary.update(prefill_bf16_rel_l2=rel,
+                       prefill_bf16_rel_l2_vs_f32=rel_f32,
+                       prefill_bf16_top1_agreement=top1,
+                       prefill_bf16_routes_differing=flips16,
+                       prefill_bf16_tokens_differing=hit16,
+                       prefill_bf16_ms=prefill_s * 1e3,
+                       prefill_tokens_per_s=PREFILL_B * PREFILL_S / prefill_s)
+        del kern32, rk, rp
+        if flips16 == 0 and hit16 == 0:
+            check(rel <= 2e-2, f"bf16 prefill rel L2 {rel} (> 2e-2)")
+        else:
+            # as phase Z: each slot held on the same input, and the whole
+            # forward no farther from plain than bf16 puts it from f32
+            sl = moe_slot_updates(params, cfg, prompt)
+            log(f"(i) bf16 slot by slot: routes differing {sl['routes']}, "
+                f"tokens left out {sl['tokens']} of {sl['of_tokens']}, "
+                f"the others' updates within {sl['err']:.3g} (rel L2), "
+                f"router probabilities within {sl['dprob']:.3g}")
+            check(sl["err"] <= 2e-2 and sl["dprob"] <= MOE_PROB_TOL[
+                "bfloat16"], f"bf16 slot by slot: updates {sl['err']} "
+                f"(rel L2 > 2e-2) or router probabilities {sl['dprob']} "
+                f"(> {MOE_PROB_TOL['bfloat16']}) apart")
+            check(rel <= rel_f32, f"bf16 prefill rel L2 {rel} from the "
+                  f"plain forward, above the f32 forward's {rel_f32}")
+            summary.update(prefill_bf16_slot_max_rel_l2=sl["err"],
+                           prefill_bf16_slot_router_prob_max_diff=sl["dprob"],
+                           prefill_bf16_slot_routes_differing=sl["routes"],
+                           prefill_bf16_slot_tokens_left_out=sl["tokens"])
+        del kern, plain
+
+        # ---- (ii) chunked prefill + decode at capacity factor 8 ---------
+        # (decode never drops, T <= 8; the full forward then neither)
+        cfg8 = cfg32.with_overrides(capacity_factor=8.0)
+        caches = M.init_caches(cfg8, batch=PREFILL_B,
+                               cache_len=PREFILL_S + DECODE_STEPS,
+                               dtype=torch.float32, device="cuda")
+        reset_k4(K)
+        last = prefill_chunks(params, cfg8, prompt, caches, CHUNK)
+        torch.cuda.synchronize()
+        n_chunks = K.launches
+        reset_k4(K)
+        steps = []
+        for t in range(DECODE_STEPS):
+            lg, caches = M.sequential_decode_step(
+                params, cfg8, tokens[:, PREFILL_S + t:PREFILL_S + t + 1],
+                caches, PREFILL_S + t)
+            steps.append(lg[:, 0])
+        torch.cuda.synchronize()
+        n_decode = K.launches
+        ref = M.sequential_lm_forward(params, cfg8, tokens)[0][
+            :, PREFILL_S - 1:]
+        err_last = (last - ref[:, 0]).abs().max().item()
+        err_dec = max((lg - ref[:, 1 + t]).abs().max().item()
+                      for t, lg in enumerate(steps))
+        log(f"(ii) capacity factor 8: {PREFILL_S // CHUNK} chunks of "
+            f"{CHUNK}: last logits {err_last:.3g} from a flash forward, K4 "
+            f"launches {n_chunks}; {DECODE_STEPS} decode steps: "
+            f"{err_dec:.3g}, K4 launches {n_decode}")
+        check(n_chunks == n_slots * PREFILL_S // CHUNK,
+              f"{n_chunks} K4 launches in the chunked prefill")
+        check(n_decode == 0, f"decode launched K4 {n_decode} times")
+        check(err_last <= 1e-3 and err_dec <= 1e-3,
+              f"chunked prefill / decode logits off by {err_last}, "
+              f"{err_dec} (> 1e-3)")
+        summary.update(chunked_prefill_max_abs_diff=err_last,
+                       decode_max_abs_diff=err_dec)
+        del caches, ref, steps, last
+
+    # ---- (iii) serving: continuous batching against standalone decode ---
+    rng = np.random.default_rng(1)
+    prompts = [lm.sample(rng, 1, int(n))[0][0].tolist()
+               for n in rng.integers(8, 65, 8)]
+    sv = serve_and_check(params, cfg32, prompts, 16, 128, {"K4": K}, torch)
+    check(sv["launches"]["K4"] == 0,
+          f"serving launched K4 {sv['launches']['K4']} times")
+    log(f"(iii) ServingEngine: 8 requests (prompts "
+        f"{[len(p) for p in prompts]}), 16 new tokens each, in "
+        f"{sv['s']:.2f}s: {sv['generated_per_s']:.1f} generated tokens/s, "
+        f"{sv['fed_per_s']:.1f} tokens fed/s; logits within "
+        f"{sv['worst']:.3g} of standalone decode; {sv['checked']}/128 "
+        f"tokens with a top-2 gap > 1e-3 all equal; smallest gap "
+        f"{sv['min_gap']:.3g}")
+    summary.update(serving_logits_max_abs_diff=sv["worst"],
+                   serving_min_top2_gap=sv["min_gap"],
+                   serving_tokens_checked=sv["checked"],
+                   serving_s=sv["s"],
+                   decode_tokens_per_s=sv["generated_per_s"],
+                   decode_tokens_fed_per_s=sv["fed_per_s"],
+                   k4_launches={"prefill_f32": n, "prefill_bf16": n16,
+                                "chunked_prefill": n_chunks,
+                                "decode": n_decode,
+                                "serving": sv["launches"]["K4"]},
+                   # on route 1; decode and serving launch no K4
+                   k4_route1={"prefill_f32": r1_f32,
+                              "prefill_bf16": r1_bf16},
+                   wall_s=time.perf_counter() - t_phase)
+    log(f"phase M took {summary['wall_s']:.1f}s")
+    print(json.dumps({"slice_moe": summary}), flush=True)
+    return summary
+
+
+# ------------------------ the xLSTM slice (X): xlstm-125m -----------------
+
+@contextlib.contextmanager
+def timed_slstm(acc):
+    """Each sLSTM mixer's wall time (synchronised before and after),
+    appended to ``acc``: the smoke's instrument, which the package reads
+    no switch for."""
+    import torch
+    from repro_torch.models import xlstm
+    mixer = xlstm.slstm_mixer
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mixer(*a, **kw)
+        torch.cuda.synchronize()
+        acc.append(time.perf_counter() - t0)
+        return out
+
+    xlstm.slstm_mixer = timed
+    try:
+        yield
+    finally:
+        xlstm.slstm_mixer = mixer
+
+
+def decode_batch_rounding(params, cfg, tokens, torch):
+    """How far the batch shape alone moves a decode: ``tokens`` stepped
+    through ``sequential_decode_step`` from ``init_caches`` at batch 1 and
+    at batch 4 (the same tokens in every row); the largest |logit
+    difference| of row 0 over the steps."""
+    from repro_torch.models import model as M
+    rows = {}
+    with torch.no_grad():
+        for B in (1, 4):
+            caches = M.init_caches(cfg, batch=B, cache_len=len(tokens),
+                                   dtype=torch.float32, device="cuda")
+            rows[B] = []
+            for pos, tok in enumerate(tokens):
+                lg, caches = M.sequential_decode_step(
+                    params, cfg, [[tok]] * B, caches, pos)
+                rows[B].append(lg[0, 0])
+    return max((a - b).abs().max().item() for a, b in zip(rows[1], rows[4]))
+
+
+def slot_chunk_updates(params, cfg, tokens, chunk, n_prompt):
+    """Slot by slot in f32: each slot's chunk and step forms against its
+    parallel form on the same input. The slot's ``apply`` over all of
+    ``tokens``' positions; then, from ``init_cache``, ``prefill_chunk``
+    over the first ``n_prompt`` positions in chunks of ``chunk`` and
+    ``step`` over the rest; the apply's output feeds the next slot.
+    Returns the largest |difference| at any position."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import BLOCKS, BlockCtx
+    f32 = torch.float32
+    x, positions, _ = M.embed(params, cfg, tokens, dtype=f32)
+    B, S = tokens.shape
+    pm = M.pad_mask(cfg, device=x.device)
+    worst = 0.0
+    with torch.no_grad():
+        for s in range(cfg.pipeline_stages):
+            for j, t in enumerate(cfg.slot_layout):
+                slot, p = BLOCKS[t], M._slot_params(params["blocks"][j], s)
+                y, _ = slot.apply(p, x, BlockCtx(
+                    cfg=cfg, positions=positions, dtype=f32,
+                    active=pm[s, j]))
+                cache = slot.init_cache(cfg, B, S, f32, x.device)
+                outs = []
+                for q in range(0, S):
+                    if q < n_prompt and q % chunk:
+                        continue
+                    form, width = ((slot.prefill_chunk, chunk)
+                                   if q < n_prompt else (slot.step, 1))
+                    o, cache = form(p, x[:, q:q + width], cache, BlockCtx(
+                        cfg=cfg, pos=q, dtype=f32, active=pm[s, j]))
+                    outs.append(o)
+                worst = max(worst, (torch.cat(outs, dim=1) - y).abs().max()
+                            .item())
+                x = y
+    return worst
+
+
+def xlstm_phase(torch, fops):
+    """Phase X: prefill, chunked prefill + decode, and serving, at the full
+    width of xlstm-125m on the card (no kernel: the recurrences are plain
+    PyTorch, as the JAX package's are plain JAX). Returns its summary."""
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServingEngine
+    K = fops.flash_attention_kernel
+    t_phase = time.perf_counter()
+    cfg = get_config("xlstm-125m").with_overrides(tensor_parallel=1,
+                                                  use_flash_attention=1)
+    check(cfg.num_layers == 12 and cfg.d_model == 768 and cfg.num_heads == 4
+          and cfg.ssm_expand == 2 and cfg.pipeline_stages == 4
+          and cfg.vocab_size == 50_304
+          and cfg.slot_layout == ("mlstm", "slstm", "mlstm"),
+          f"xlstm-125m at its published widths: {cfg}")
+    cfg32 = cfg.with_overrides(dtype="float32")
+    params = M.init_params(0, cfg, device="cuda")
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    check(n_params == XLSTM_PARAMETERS, f"{n_params:,} parameters, not "
+          f"{XLSTM_PARAMETERS:,}")
+    lm = SyntheticLM(vocab_size=cfg.vocab_size, seed=0)
+    toks, _ = lm.sample(np.random.default_rng(0), PREFILL_B,
+                        PREFILL_S + DECODE_STEPS)
+    tokens = torch.as_tensor(toks, device="cuda")
+    prompt = tokens[:, :PREFILL_S]
+    log(f"{cfg.name}: {n_params:,} parameters (f32), 4 stages of "
+        f"{cfg.slot_layout}; prompts [{PREFILL_B}, {PREFILL_S}] from "
+        f"SyntheticLM")
+    summary = {"config": f"{cfg.name} tensor_parallel=1 "
+                         f"use_flash_attention=1", "parameters": n_params}
+
+    def forward(c, toks_):
+        reset_k4(K)
+        logits = M.sequential_lm_forward(params, c, toks_)[0]
+        torch.cuda.synchronize()
+        return logits, K.launches
+
+    with torch.no_grad():
+        # ---- (i) prefill in f32 and bf16 --------------------------------
+        t0 = time.perf_counter()
+        full32, n = forward(cfg32, prompt)
+        prefill32_s = time.perf_counter() - t0
+        forward(cfg, prompt)                               # warm-up
+        t0 = time.perf_counter()
+        full16, n16 = forward(cfg, prompt)
+        prefill_s = time.perf_counter() - t0
+        acc = []
+        with timed_slstm(acc):
+            t0 = time.perf_counter()
+            forward(cfg, prompt)
+            timed_s = time.perf_counter() - t0
+        share = sum(acc) / timed_s
+        rel = ((full16 - full32).norm() / full32.norm()).item()
+        check(bool(torch.isfinite(full32).all())
+              and bool(torch.isfinite(full16).all()), "non-finite logits")
+        check(n == n16 == 0, f"xLSTM prefill launched K4 {n}, {n16} times")
+        log(f"(i) prefill B={PREFILL_B} S={PREFILL_S}: f32 "
+            f"{prefill32_s * 1e3:.1f} ms (the phase's first forward), bf16 "
+            f"{prefill_s * 1e3:.1f} ms, "
+            f"{PREFILL_B * PREFILL_S / prefill_s:,.0f} tokens/s; bf16 "
+            f"{rel:.3g} rel L2 from f32; the {len(acc)} sLSTM layers "
+            f"{sum(acc) * 1e3:.1f} ms of a synchronised "
+            f"{timed_s * 1e3:.1f} ms bf16 forward ({share:.1%}); K4 "
+            f"launches {n}, {n16}")
+        summary.update(prefill_f32_ms=prefill32_s * 1e3,
+                       prefill_bf16_ms=prefill_s * 1e3,
+                       prefill_tokens_per_s=PREFILL_B * PREFILL_S / prefill_s,
+                       prefill_bf16_rel_l2_vs_f32=rel,
+                       slstm_ms=sum(acc) * 1e3,
+                       slstm_share_of_prefill=share)
+        del full16, full32
+
+        # ---- (ii) chunked prefill into the caches, then decode ----------
+        caches = M.init_caches(cfg32, batch=PREFILL_B,
+                               cache_len=PREFILL_S + DECODE_STEPS,
+                               dtype=torch.float32, device="cuda")
+        reset_k4(K)
+        t0 = time.perf_counter()
+        last = prefill_chunks(params, cfg32, prompt, caches, CHUNK)
+        torch.cuda.synchronize()
+        chunked_s = time.perf_counter() - t0
+        steps = []
+        for t in range(DECODE_STEPS):
+            lg, caches = M.sequential_decode_step(
+                params, cfg32, tokens[:, PREFILL_S + t:PREFILL_S + t + 1],
+                caches, PREFILL_S + t)
+            steps.append(lg[:, 0])
+        torch.cuda.synchronize()
+        n_cd = K.launches
+        ref, _ = forward(cfg32, tokens)
+        ref = ref[:, PREFILL_S - 1:]
+        err_last = (last - ref[:, 0]).abs().max().item()
+        err_dec = max((lg - ref[:, 1 + t]).abs().max().item()
+                      for t, lg in enumerate(steps))
+        del caches, ref, steps, last
+        slot_err = slot_chunk_updates(params, cfg32, tokens, CHUNK,
+                                      PREFILL_S)
+        log(f"(ii) {PREFILL_S // CHUNK} chunks of {CHUNK} "
+            f"({chunked_s * 1e3:.1f} ms): last logits {err_last:.3g} from "
+            f"the full forward; {DECODE_STEPS} decode steps: {err_dec:.3g}; "
+            f"slot by slot, every chunk and step output within "
+            f"{slot_err:.3g} of the slot's parallel form on the same "
+            f"input; K4 launches {n_cd}")
+        check(n_cd == 0, f"chunked prefill / decode launched K4 {n_cd} times")
+        check(slot_err <= 1e-3, f"a slot's chunk / step outputs are "
+              f"{slot_err} from its parallel form (> 1e-3)")
+        check(err_last <= XLSTM_WHOLE_MODEL_TOL
+              and err_dec <= XLSTM_WHOLE_MODEL_TOL,
+              f"chunked prefill / decode logits off by {err_last}, "
+              f"{err_dec} (> {XLSTM_WHOLE_MODEL_TOL})")
+        summary.update(chunked_prefill_max_abs_diff=err_last,
+                       decode_max_abs_diff=err_dec,
+                       chunked_and_decode_slot_max_abs_diff=slot_err)
+
+    # ---- (iii) serving, and a reused slot against a fresh engine --------
+    rng = np.random.default_rng(1)
+    prompts = [lm.sample(rng, 1, int(n))[0][0].tolist()
+               for n in rng.integers(8, 25, 6)]
+    sv = serve_and_check(params, cfg32, prompts, 8, 64, {"K4": K}, torch,
+                         standalone_batch=4)
+    batch_shape = max(decode_batch_rounding(params, cfg32, p + t[:-1], torch)
+                      for p, t in zip(prompts, sv["tokens"]))
+    check(sv["launches"]["K4"] == 0,
+          f"serving launched K4 {sv['launches']['K4']} times")
+    # requests 5 and 6 were admitted into slots that earlier requests left
+    for i in (4, 5):
+        eng = ServingEngine(cfg32, params, max_slots=4, cache_len=64,
+                            device="cuda")
+        u = eng.submit(prompts[i], max_new_tokens=8)
+        alone = eng.run_until_drained()[u]
+        check(alone == sv["tokens"][i], f"request {i + 1} in a reused slot "
+              f"gave {sv['tokens'][i]}, in a fresh engine {alone}")
+    log(f"(iii) ServingEngine: 6 requests (prompts "
+        f"{[len(p) for p in prompts]}), 8 new tokens each, in "
+        f"{sv['s']:.2f}s: {sv['generated_per_s']:.1f} generated tokens/s, "
+        f"{sv['fed_per_s']:.1f} tokens fed/s; logits within "
+        f"{sv['worst']:.3g} of standalone decode at batch 4; "
+        f"{sv['checked']}/48 tokens with a top-2 gap > 1e-3 all equal; "
+        f"smallest gap {sv['min_gap']:.3g}; requests 5, 6 (reused slots) "
+        f"equal to a "
+        f"fresh engine's; the same tokens decoded at batch 1 and at batch "
+        f"4 differ by {batch_shape:.3g} (the batch shape's rounding "
+        f"alone)")
+    summary.update(serving_logits_max_abs_diff=sv["worst"],
+                   serving_min_top2_gap=sv["min_gap"],
+                   serving_tokens_checked=sv["checked"],
+                   decode_batch_1_vs_4_max_abs_diff=batch_shape,
+                   serving_s=sv["s"],
+                   decode_tokens_per_s=sv["generated_per_s"],
+                   decode_tokens_fed_per_s=sv["fed_per_s"],
+                   k4_launches={"prefill_f32": n, "prefill_bf16": n16,
+                                "chunked_prefill_and_decode": n_cd,
+                                "serving": sv["launches"]["K4"]},
+                   wall_s=time.perf_counter() - t_phase)
+    log(f"phase X took {summary['wall_s']:.1f}s")
+    print(json.dumps({"slice_xlstm": summary}), flush=True)
+    return summary
+
+
+# ----------------------- the Whisper slice (W): whisper-base --------------
+
+@contextlib.contextmanager
+def recorded_flash(calls):
+    """(Sq, Skv, causal) of every self-attention that ``attention()`` sends
+    to K4, appended to ``calls``: the smoke's recorder."""
+    from repro_torch.models import attention
+    fa = attention.flash_attention
+
+    def recording(q, k, v, causal, window):
+        calls.append((q.shape[2], k.shape[2], bool(causal)))
+        return fa(q, k, v, causal, window)
+
+    attention.flash_attention = recording
+    try:
+        yield
+    finally:
+        attention.flash_attention = fa
+
+
+def whisper_phase(torch, fops):
+    """Phase W: the encoder over 1,500 frames and the decoder over 448
+    tokens, then decode with ``kv_source``, at the full width of
+    whisper-base on the card. Returns its summary."""
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import BlockCtx
+    K = fops.flash_attention_kernel
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-base").with_overrides(tensor_parallel=1,
+                                                    use_flash_attention=1)
+    check(cfg.encoder_layers == cfg.decoder_layers == 6
+          and cfg.d_model == 512 and cfg.num_heads == cfg.num_kv_heads == 8
+          and cfg.head_dim == 64 and cfg.d_ff == 2048
+          and cfg.vocab_size == 51_865 and cfg.max_target_positions == 448
+          and cfg.num_audio_frames == 1500 and cfg.rope_theta == 0.0
+          and cfg.slot_layout == ("enc",) * 3
+          and cfg.decoder_slot_layout == ("dec",) * 3,
+          f"whisper-base at its published widths: {cfg}")
+    cfg32 = cfg.with_overrides(dtype="float32")
+    params = M.init_params(0, cfg, device="cuda")
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    check(n_params == WHISPER_PARAMETERS, f"{n_params:,} parameters, not "
+          f"{WHISPER_PARAMETERS:,}")
+    B, F, S = PREFILL_B, cfg.num_audio_frames, cfg.max_target_positions
+    frames = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (B, F, cfg.d_model)).astype(np.float32), device="cuda")
+    toks, _ = SyntheticLM(vocab_size=cfg.vocab_size, seed=0).sample(
+        np.random.default_rng(0), B, S)
+    tokens = torch.as_tensor(toks, device="cuda")
+    log(f"{cfg.name}: {n_params:,} parameters (f32), 6 encoder + 6 decoder "
+        f"layers; frames [{B}, {F}, {cfg.d_model}] (numpy, seed 0), tokens "
+        f"[{B}, {S}] from SyntheticLM")
+    summary = {"config": f"{cfg.name} tensor_parallel=1 "
+                         f"use_flash_attention=1", "parameters": n_params}
+    want_calls = sorted([(F, F, False)] * 6 + [(S, S, True)] * 6)
+
+    def forward(c):
+        reset_k4(K)
+        calls = []
+        with recorded_flash(calls):
+            logits = M.sequential_encdec_forward(params, c, frames, tokens)[0]
+        torch.cuda.synchronize()
+        return logits, K.launches, K.launches_route1, sorted(calls)
+
+    with torch.no_grad():
+        # ---- (i) the whole forward: K4 against the plain attention ------
+        t0 = time.perf_counter()
+        kern, n, r1_f32, calls = forward(cfg32)
+        fwd32_s = time.perf_counter() - t0
+        plain, n0, _, _ = forward(cfg32.with_overrides(use_flash_attention=0))
+        check(n == 12 and r1_f32 == 0 and n0 == 0 and calls == want_calls,
+              f"f32 forward: {n} K4 launches ({r1_f32} on route 1), {n0} "
+              f"without; (Sq, Skv, causal) {calls}")
+        err = (kern - plain).abs().max().item()
+        check(bool(torch.isfinite(kern).all()), "non-finite f32 logits")
+        log(f"(i) f32 forward: max |logit flash - plain| {err:.3g}; K4 "
+            f"launches {n}: 6 non-causal over {F} keys (the encoder), 6 "
+            f"causal over {S} (the decoder); {fwd32_s * 1e3:.1f} ms (the "
+            f"phase's first forward)")
+        check(err <= 1e-3, f"f32 logits differ by {err} (> 1e-3)")
+        kern32 = kern
+        del plain
+        forward(cfg)                                       # warm-up
+        t0 = time.perf_counter()
+        kern, n16, r1_bf16, _ = forward(cfg)
+        fwd_s = time.perf_counter() - t0
+        plain, n0, _, _ = forward(cfg.with_overrides(use_flash_attention=0))
+        check(n16 == r1_bf16 == 12 and n0 == 0,
+              f"bf16 forward: {n16} K4 launches ({r1_bf16} on route 1), "
+              f"{n0} without")
+        check(bool(torch.isfinite(kern).all()), "non-finite bf16 logits")
+        rel = ((kern - plain).norm() / plain.norm()).item()
+        top1 = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+        log(f"(i) bf16 forward: rel L2 {rel:.3g}, top-1 agreement "
+            f"{top1:.4f}; {fwd_s * 1e3:.1f} ms: {B * F / fwd_s:,.0f} frames/s "
+            f"with {B * S / fwd_s:,.0f} decoder tokens/s")
+        check(rel <= 2e-2, f"bf16 rel L2 {rel} (> 2e-2)")
+        summary.update(forward_f32_max_abs_diff=err,
+                       forward_f32_ms=fwd32_s * 1e3,
+                       forward_bf16_rel_l2=rel,
+                       forward_bf16_top1_agreement=top1,
+                       forward_bf16_ms=fwd_s * 1e3,
+                       frames_per_s=B * F / fwd_s,
+                       decoder_tokens_per_s=B * S / fwd_s)
+        del kern, plain
+
+        # ---- (ii) decode with kv_source against the full forward --------
+        xe, pos_e = M.embed_frames(cfg32, frames, torch.float32)
+        kv, _ = M.forward_blocks(
+            params["blocks"], cfg32.slot_layout, xe,
+            BlockCtx(cfg=cfg32, positions=pos_e, dtype=torch.float32,
+                     causal=False), M.pad_mask(cfg32, device="cuda"))
+        caches = M.init_caches(cfg32, batch=B, cache_len=S,
+                               layout=cfg32.decoder_slot_layout,
+                               dtype=torch.float32, device="cuda")
+        reset_k4(K)
+        steps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(WHISPER_DECODE_STEPS):
+            lg, caches = M.sequential_decode_step(
+                params, cfg32, tokens[:, t:t + 1], caches, t, kv_source=kv)
+            steps.append(lg[:, 0])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        n_dec = K.launches
+        err_dec = max((lg - kern32[:, t]).abs().max().item()
+                      for t, lg in enumerate(steps))
+        log(f"(ii) {WHISPER_DECODE_STEPS} decode steps with kv_source: "
+            f"{err_dec:.3g} from the f32 forward's first "
+            f"{WHISPER_DECODE_STEPS} positions; K4 launches {n_dec}; "
+            f"{B * WHISPER_DECODE_STEPS / decode_s:.1f} tokens/s at B={B}")
+        check(n_dec == 0, f"decode launched K4 {n_dec} times")
+        check(err_dec <= 1e-3, f"decode logits off by {err_dec} (> 1e-3)")
+        summary.update(decode_max_abs_diff=err_dec,
+                       decode_tokens_per_s=B * WHISPER_DECODE_STEPS
+                       / decode_s,
+                       k4_launches={"forward_f32": n, "forward_bf16": n16,
+                                    "decode": n_dec},
+                       k4_route1={"forward_f32": r1_f32,
+                                  "forward_bf16": r1_bf16},
+                       wall_s=time.perf_counter() - t_phase)
+    log(f"phase W took {summary['wall_s']:.1f}s")
+    print(json.dumps({"slice_whisper": summary}), flush=True)
+    return summary
+
+
 def main():
     t_smoke = time.perf_counter()
     import torch
@@ -2032,11 +2818,23 @@ def main():
 
     # ---- phase T: the dense transformer serving path -----------------------
     t_run = transformer_phase(torch, fops)
-    torch.cuda.empty_cache()          # phase T's model is freed
+    free_card(torch)                  # phase T's model is freed
 
     # ---- phase Z: the hybrid Mamba2 serving path ---------------------------
     z_run = hybrid_phase(torch, fops, sops)
-    torch.cuda.empty_cache()
+    free_card(torch)
+
+    # ---- phase M: the MoE serving path --------------------------------------
+    m_run = moe_phase(torch, fops)
+    free_card(torch)
+
+    # ---- phase X: the xLSTM serving path ------------------------------------
+    x_run = xlstm_phase(torch, fops)
+    free_card(torch)
+
+    # ---- phase W: the Whisper encoder-decoder path --------------------------
+    w_run = whisper_phase(torch, fops)
+    free_card(torch)
 
     # ---- phase 4: K1 at the run's slice sizes, then timings -----------------
     sizes = sorted({s for r in (res, *f_runs)
@@ -2105,11 +2903,14 @@ def main():
               "decode": t_run["k4_launches_decode"],
               "serving": t_run["k4_launches_serving"],
               **{f"zamba2_{r}": z_run[f"launches_{r}"]["K4"]
-                 for r in z_runs}}
+                 for r in z_runs},
+              **{f"{name}_{r}": v for name, run in (
+                  ("olmoe", m_run), ("xlstm", x_run), ("whisper", w_run))
+                 for r, v in run["k4_launches"].items()}}
     top = k4_times[0]                    # B=4, S=2048, causal, bf16
     n_k4 = sum(by_run.values())
-    n_route1 = sum(t_run["k4_route1"].values()) + sum(
-        z_run["k4_route1"].values())
+    n_route1 = sum(sum(run["k4_route1"].values())
+                   for run in (t_run, z_run, m_run, w_run))
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         # route 1 (bf16, the serving path's dtype) is the one timed here;

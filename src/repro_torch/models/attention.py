@@ -4,9 +4,10 @@ into a KV cache, and decode (one token against the cache).
 The port of ``repro.models.attention``, with its layouts (activations
 ``[B, S, heads, head_dim]``, caches ``[B, cache_len, kv_heads, head_dim]``)
 and its routing: with ``cfg.use_flash_attention`` set and the kv heads
-aligned with the tensor shards (``kv_prop``), ``attention`` and
-``chunk_attention`` go through the flash attention kernel (K4); otherwise,
-and always for decode, through the plain ``_sdpa``.
+aligned with the tensor shards (``kv_prop``), self-attention in
+``attention`` and ``chunk_attention`` goes through the flash attention
+kernel (K4); otherwise, and always for cross-attention and decode,
+through the plain ``_sdpa``.
 """
 from __future__ import annotations
 
@@ -33,6 +34,11 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
                                  dtype=dtype),
         "wo": modules.dense_init(gen, H * hd, d, dtype=dtype),
     }
+
+
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig,
+                         dtype=torch.float32):
+    return init_attention(gen, cfg.with_overrides(qkv_bias=False), dtype)
 
 
 def _split_heads(x, head_dim):

@@ -1,9 +1,11 @@
 """Whole-model assembly: embeddings, stacked pipeline slots, head, and the
 sequential (non-pipelined) forward and decode step.
 
-The port of ``repro.models.model`` for the dense family (and ``vlm``,
-whose slots are dense) and the hybrid family (zamba2: ``hybrid`` and
-``mamba`` slots), with its parameter layout:
+The port of ``repro.models.model`` for every family of the JAX package:
+dense (and ``vlm``, whose slots are dense), moe, ssm (xLSTM), hybrid
+(zamba2) and audio (Whisper: an encoder stack over precomputed frame
+embeddings, ``params["blocks"]``, and a decoder stack with
+cross-attention, ``params["dec_blocks"]``), with its parameter layout:
   - Each pipeline stage holds ``layers_per_stage`` slots with a fixed,
     stage-uniform type layout.
   - Block params are stacked over a leading stage axis: leaf [S, ...];
@@ -29,13 +31,6 @@ from repro_torch.models.blocks import BLOCKS, BlockCtx
 from repro_torch.runtime.devices import resolve_device
 
 
-def _check_family(cfg: ModelConfig):
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            "the audio family (Whisper enc/dec slots) is not ported yet "
-            "(ROADMAP Queue 1 item 11b)")
-
-
 # --------------------------- layout helpers -----------------------------
 
 def default_assignment(cfg: ModelConfig) -> list[int]:
@@ -47,6 +42,12 @@ def default_assignment(cfg: ModelConfig) -> list[int]:
     counts = [base + (1 if s < extra else 0) for s in range(S)]
     assert all(c <= lps for c in counts), (counts, lps)
     return counts
+
+
+def decoder_assignment(cfg: ModelConfig) -> list[int]:
+    S = cfg.pipeline_stages
+    base, extra = divmod(cfg.decoder_layers, S)
+    return [base + (1 if s < extra else 0) for s in range(S)]
 
 
 def pad_mask(cfg: ModelConfig, assignment=None, layout=None,
@@ -88,7 +89,6 @@ def init_params(seed_or_generator, cfg: ModelConfig, dtype=torch.float32,
     (pass ``device="cpu"`` to build on the CPU). The draws cannot be the
     JAX package's: to run both on identical weights, use
     ``params_from_numpy``."""
-    _check_family(cfg)
     if isinstance(seed_or_generator, torch.Generator):
         gen = seed_or_generator
         dev = gen.device if device is None else resolve_device(device)
@@ -98,15 +98,20 @@ def init_params(seed_or_generator, cfg: ModelConfig, dtype=torch.float32,
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(seed_or_generator))
     S = cfg.pipeline_stages
-    return {
+    audio = cfg.family == "audio"
+    params = {
         "embed": modules.embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                     dtype),
         "blocks": _stack_init(cfg.slot_layout, gen, cfg, S, dtype),
-        "final_norm": modules.norm_init(cfg.d_model, dtype=dtype,
+        "final_norm": modules.norm_init(cfg.d_model, bias=audio, dtype=dtype,
                                         device=gen.device),
         "head": modules.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                    dtype=dtype),
     }
+    if audio:
+        params["dec_blocks"] = _stack_init(cfg.decoder_slot_layout, gen, cfg,
+                                           S, dtype)
+    return params
 
 
 def params_from_numpy(params, device="cpu"):
@@ -144,6 +149,17 @@ def embed(params, cfg: ModelConfig, tokens, *, prefix=None,
     return x, positions, mask
 
 
+def embed_frames(cfg: ModelConfig, frames, dtype=torch.bfloat16):
+    """Whisper encoder input: precomputed frame embeddings [B, F, d] +
+    sinusoidal positions. Returns (x, positions [B, F])."""
+    B, F, d = frames.shape
+    pos = modules.sinusoidal_positions(F, d, frames.device)
+    x = frames.to(dtype) + pos[None].to(dtype)
+    positions = torch.arange(F, dtype=torch.int32,
+                             device=frames.device).expand(B, F)
+    return x, positions
+
+
 def head(params, cfg: ModelConfig, x, dtype=torch.float32):
     xn = (modules.layernorm if cfg.family == "audio" else modules.rmsnorm)(
         params["final_norm"], x, cfg.norm_eps)
@@ -171,8 +187,8 @@ def forward_blocks(params_blocks, layout, x, ctx: BlockCtx, mask):
 
 def sequential_lm_forward(params, cfg: ModelConfig, tokens, *, prefix=None,
                           assignment=None, dtype=None, window: int = 0):
-    """Full LM forward (dense/hybrid/vlm). Returns (logits, aux, mask)."""
-    _check_family(cfg)
+    """Full LM forward (dense/moe/ssm/hybrid/vlm). Returns (logits, aux,
+    mask)."""
     dtype = dtype or modules.dtype_of(cfg.dtype)
     x, positions, mask = embed(params, cfg, tokens, prefix=prefix,
                                dtype=dtype)
@@ -183,13 +199,35 @@ def sequential_lm_forward(params, cfg: ModelConfig, tokens, *, prefix=None,
     return head(params, cfg, x), aux, mask
 
 
+def sequential_encdec_forward(params, cfg: ModelConfig, frames, tokens,
+                              assignment=None, dtype=None):
+    """Whisper: encoder over frames [B, F, d], decoder over tokens with
+    cross-attention to the encoder's output. Returns (logits, 0.0,
+    mask)."""
+    dtype = dtype or modules.dtype_of(cfg.dtype)
+    table = params["embed"]["table"]
+    frames = torch.as_tensor(frames, device=table.device)
+    xe, pos_e = embed_frames(cfg, frames, dtype)
+    ctx_e = BlockCtx(cfg=cfg, positions=pos_e, dtype=dtype, causal=False)
+    pm_e = pad_mask(cfg, assignment, device=xe.device)
+    xe, _ = forward_blocks(params["blocks"], cfg.slot_layout, xe, ctx_e, pm_e)
+
+    xd, pos_d, mask = embed(params, cfg, tokens, dtype=dtype)
+    ctx_d = BlockCtx(cfg=cfg, positions=pos_d, dtype=dtype, kv_source=xe)
+    pm_d = pad_mask(cfg, decoder_assignment(cfg), cfg.decoder_slot_layout,
+                    device=xd.device)
+    xd, _ = forward_blocks(params["dec_blocks"], cfg.decoder_slot_layout, xd,
+                           ctx_d, pm_d)
+    return head(params, cfg, xd), 0.0, mask
+
+
 # ------------------------------- decode ---------------------------------
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, layout=None,
                 dtype=torch.bfloat16, device=None):
     """Stacked decode caches: per slot, leaves [S, ...] (stage-stacked).
-    ``device`` defaults to CUDA and raises without it."""
-    _check_family(cfg)
+    ``device`` defaults to CUDA and raises without it. For Whisper, pass
+    ``layout=cfg.decoder_slot_layout``."""
     dev = resolve_device(device)
     layout = layout or cfg.slot_layout
     S = cfg.pipeline_stages
@@ -204,21 +242,28 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, layout=None,
 def sequential_decode_step(params, cfg: ModelConfig, token, caches, pos, *,
                            kv_source=None, assignment=None, dtype=None):
     """One-token decode through all slots. token: [B,1] int; pos: an int
-    or a per-sequence [B] int tensor. Returns (logits [B,1,V], new caches);
-    the caches passed in are not written."""
-    _check_family(cfg)
+    or a per-sequence [B] int tensor. Whisper's decoder reads the encoder's
+    output from ``kv_source``. Returns (logits [B,1,V], new caches); the
+    caches passed in are not written."""
     dtype = dtype or modules.dtype_of(cfg.dtype)
     table = params["embed"]["table"]
     token = torch.as_tensor(token, device=table.device).long()
     pos = torch.as_tensor(pos, dtype=torch.int32, device=table.device)
     x = table.to(dtype)[token]
-    layout = cfg.slot_layout
-    pm = pad_mask(cfg, assignment, layout, device=x.device)
+    audio = cfg.family == "audio"
+    if audio:
+        pos_table = modules.sinusoidal_positions(cfg.max_target_positions,
+                                                 cfg.d_model, x.device)
+        x = x + pos_table[pos.long()].reshape(-1, 1, cfg.d_model).to(dtype)
+    layout = cfg.decoder_slot_layout if audio else cfg.slot_layout
+    blocks = params["dec_blocks"] if audio else params["blocks"]
+    pm = pad_mask(cfg, assignment or (decoder_assignment(cfg) if audio
+                                      else None), layout, device=x.device)
     S = pm.shape[0]
     new_caches = [tree.map(torch.clone, c) for c in caches]
     for s in range(S):
         for j, t in enumerate(layout):
-            p = _slot_params(params["blocks"][j], s)
+            p = _slot_params(blocks[j], s)
             c_in = tree.map(lambda a: a[s], caches[j])
             ctx = BlockCtx(cfg=cfg, pos=pos, dtype=dtype, active=pm[s, j],
                            kv_source=kv_source, window=cfg.sliding_window)

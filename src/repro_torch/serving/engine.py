@@ -6,7 +6,11 @@ The port of ``repro.serving.engine``, with its scheduling: at each engine
 step every ACTIVE slot advances one token — prompt tokens are fed
 (prefill-by-decode) until exhausted, then sampled continuations; finished
 slots retire (max tokens, EOS, or the cache length reached) and are
-refilled from the queue, their cache rows zeroed. The engine runs on
+refilled from the queue, their cache rows reset to a fresh
+``init_caches`` row. That is zeros for the attention, Mamba2 and MoE
+slots, but not for xLSTM's, whose stabiliser ``m`` starts at -1e30; the
+JAX engine zeroes every leaf, which gives a reused xLSTM slot another
+stream than a fresh one (ROADMAP Queue 3). The engine runs on
 ``device`` (CUDA unless told otherwise; it raises without it) and samples
 with a ``torch.Generator`` seeded from ``seed`` when ``temperature > 0``.
 """
@@ -57,6 +61,10 @@ class ServingEngine:
                                             cache_len=cache_len,
                                             dtype=torch.float32,
                                             device=self.device)
+        # one fresh row of every cache leaf: what a new request starts from
+        self._fresh = tree.leaves(model_lib.init_caches(
+            cfg, batch=1, cache_len=cache_len, dtype=torch.float32,
+            device=self.device))
 
     # ------------------------------- api --------------------------------
     def submit(self, prompt: list[int], max_new_tokens: int = 16) -> int:
@@ -81,9 +89,9 @@ class ServingEngine:
         return logits[:, 0], new_caches
 
     def _reset_slot_cache(self, i: int):
-        """Zero slot i's rows in every cache leaf (fresh request)."""
-        for leaf in tree.leaves(self.caches):
-            leaf[:, i] = 0
+        """Set slot i's rows of every cache leaf to a fresh request's."""
+        for leaf, fresh in zip(tree.leaves(self.caches), self._fresh):
+            leaf[:, i] = fresh[:, 0]
 
     def step(self) -> list[Request]:
         # admit queued requests into free slots

@@ -16,37 +16,27 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from repro.configs import get_config as jax_config  # noqa: E402
+from _torch_parity import both, cfgs, draw  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.serving import ServingEngine as JaxEngine  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch import tree  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
-KEY = jax.random.PRNGKey(0)
+
+def _family_setup(arch, seed, **kw):
+    """``arch`` reduced to a 128-token vocab, weights drawn with numpy
+    (``_torch_parity.draw``, O(1) embeddings: peaked logits), as (JAX
+    config, JAX params, port config, port params)."""
+    jcfg, cfg = cfgs(arch, vocab_size=128, **kw)
+    jparams, params = both(draw(lambda k: JM.init_params(k, jcfg), seed,
+                                table_scale=1.0))
+    return jcfg, jparams, cfg, params
 
 
 @pytest.fixture(scope="module")
 def setup():
-    kw = dict(num_layers=2, vocab_size=128)
-    jcfg = jax_config("qwen2-1.5b").reduced(**kw)
-    cfg = get_config("qwen2-1.5b").reduced(**kw)
-    rng = np.random.default_rng(0)
-
-    def draw(path, s):
-        name = jax.tree_util.keystr(path)
-        if "scale" in name:
-            return (1.0 + 0.1 * rng.standard_normal(s.shape)).astype(
-                np.float32)
-        if "table" in name:         # O(1) embeddings: peaked logits
-            return rng.standard_normal(s.shape).astype(np.float32)
-        scale = 0.1 if "'b'" in name else s.shape[-2] ** -0.5
-        return (scale * rng.standard_normal(s.shape)).astype(np.float32)
-
-    np_params = jax.tree_util.tree_map_with_path(
-        draw, jax.eval_shape(lambda k: JM.init_params(k, jcfg), KEY))
-    return (jcfg, jax.tree.map(jnp.asarray, np_params), cfg,
-            M.params_from_numpy(np_params))
+    return _family_setup("qwen2-1.5b", 0, num_layers=2)
 
 
 def _streams(setup, prompts, max_new, **kw):
@@ -134,30 +124,9 @@ def test_temperature_sampling_is_deterministic_in_the_seed(setup):
 
 @pytest.fixture(scope="module")
 def hybrid_setup():
-    """zamba2-7b reduced (2 stages of a hybrid and a mamba slot), drawn as
-    ``setup`` draws qwen2's; the SSM leaves keep the JAX init's values."""
-    kw = dict(num_layers=4, vocab_size=128)
-    jcfg = jax_config("zamba2-7b").reduced(**kw)
-    cfg = get_config("zamba2-7b").reduced(**kw)
-    rng = np.random.default_rng(1)
-    own = JM.init_params(KEY, jcfg)
-
-    def draw(path, s, v):
-        name = jax.tree_util.keystr(path)
-        if any(k in name for k in ("A_log", "dt_bias", "'D'", "conv_b")):
-            return np.asarray(v)
-        if "scale" in name:
-            return (1.0 + 0.1 * rng.standard_normal(s.shape)).astype(
-                np.float32)
-        if "table" in name:
-            return rng.standard_normal(s.shape).astype(np.float32)
-        scale = 0.1 if "'b'" in name else s.shape[-2] ** -0.5
-        return (scale * rng.standard_normal(s.shape)).astype(np.float32)
-
-    np_params = jax.tree_util.tree_map_with_path(
-        draw, jax.eval_shape(lambda k: JM.init_params(k, jcfg), KEY), own)
-    return (jcfg, jax.tree.map(jnp.asarray, np_params), cfg,
-            M.params_from_numpy(np_params))
+    """zamba2-7b reduced (2 stages of a hybrid and a mamba slot); the SSM
+    leaves keep the JAX init's values."""
+    return _family_setup("zamba2-7b", 1, num_layers=4)
 
 
 def test_hybrid_interleaved_requests_in_fewer_slots(hybrid_setup):
@@ -210,3 +179,82 @@ def test_hybrid_logit_gaps_dwarf_the_rounding(hybrid_setup):
         gaps.append(float(top2[0] - top2[1]))
         tok = int(torch.argmax(got[0, 0]))
     assert min(gaps) > 1e-3, gaps
+
+
+# -------------- the moe and ssm families (olmoe, xlstm reduced) ------------
+
+@pytest.fixture(scope="module")
+def moe_setup():
+    return _family_setup("olmoe-1b-7b", 2)
+
+
+@pytest.fixture(scope="module")
+def xlstm_setup():
+    return _family_setup("xlstm-125m", 3, num_layers=6)
+
+
+def _jax_sequential(setup, prompt, max_new):
+    """Greedy tokens of the JAX package's ``sequential_decode_step`` from
+    ``init_caches`` (batch 1), and the smallest top-2 logit gap among the
+    generated tokens."""
+    jcfg, jparams, _, _ = setup
+    jc = JM.init_caches(jcfg, batch=1, cache_len=32, dtype=jnp.float32)
+    step = jax.jit(lambda p_, t_, c_, pos_: JM.sequential_decode_step(
+        p_, jcfg, t_, c_, pos_))
+    fed, out, gap = list(prompt), [], float("inf")
+    for pos in range(len(prompt) + max_new - 1):
+        lg, jc = step(jparams, jnp.asarray([[fed[pos]]], jnp.int32), jc,
+                      jnp.int32(pos))
+        if pos >= len(prompt) - 1:
+            row = np.sort(np.asarray(lg[0, 0]))
+            gap = min(gap, float(row[-1] - row[-2]))
+            out.append(int(np.argmax(np.asarray(lg[0, 0]))))
+            fed.append(out[-1])
+    return out, gap
+
+
+@pytest.mark.parametrize("family", ["moe", "xlstm"])
+def test_family_streams_equal_jax_sequential_decode(family, moe_setup,
+                                                    xlstm_setup):
+    """olmoe-1b-7b and xlstm-125m reduced: the engine's token streams, 4
+    requests in 2 slots (so two slots are reused), equal the JAX
+    package's ``sequential_decode_step`` from ``init_caches``, request by
+    request. The top-2 gaps along those streams (0.095 and up for olmoe,
+    0.0022 and up for xLSTM, measured) stand above the two packages'
+    logit differences (~1e-5 for olmoe; up to 5.5e-4 for xLSTM, whose
+    mLSTM slots amplify rounding, see ``tests/test_torch_xlstm.py``)."""
+    setup = {"moe": moe_setup, "xlstm": xlstm_setup}[family]
+    _, _, cfg, params = setup
+    prompts = [[5, 9, 2], [7], [11, 3], [1, 2, 3, 4]]
+    eng = ServingEngine(cfg, params, max_slots=2, cache_len=32,
+                        device="cpu")
+    uids = [eng.submit(q, max_new_tokens=5) for q in prompts]
+    got = eng.run_until_drained()
+    for q, u in zip(prompts, uids):
+        want, gap = _jax_sequential(setup, q, 5)
+        assert got[u] == want and gap > 1e-3, (q, got[u], want, gap)
+
+
+def test_xlstm_reused_slot_equals_a_fresh_request(xlstm_setup):
+    """A reused xLSTM slot starts from ``init_caches`` values (the
+    stabiliser ``m`` at -1e30, not 0): the second request's stream in a
+    one-slot engine equals a fresh engine's and the JAX package's
+    sequential decode from ``init_caches``, and the slot's caches after
+    admission equal a fresh engine's."""
+    _, _, cfg, params = xlstm_setup
+    eng = ServingEngine(cfg, params, max_slots=1, cache_len=32,
+                        device="cpu")
+    eng.submit([5, 17, 3, 99, 42], max_new_tokens=6)
+    eng.run_until_drained()
+    second = [7, 7, 12]
+    u = eng.submit(second, max_new_tokens=6)
+    fresh = ServingEngine(cfg, params, max_slots=1, cache_len=32,
+                          device="cpu")
+    fu = fresh.submit(second, max_new_tokens=6)
+    eng.step()
+    fresh.step()                              # both admitted, one step
+    for a, b in zip(tree.leaves(eng.caches), tree.leaves(fresh.caches)):
+        assert torch.equal(a, b)
+    got = eng.run_until_drained()[u]
+    assert got == fresh.run_until_drained()[fu]
+    assert got == _jax_sequential(xlstm_setup, second, 6)[0]

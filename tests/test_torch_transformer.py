@@ -23,13 +23,16 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from _torch_parity import KEY, x as _x  # noqa: E402
+from _torch_parity import both as _both, cfgs as _cfgs  # noqa: E402
+from _torch_parity import close, draw as _draw  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import blocks as jblocks  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models import modules as jmod  # noqa: E402
 from repro_torch import tree  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -37,51 +40,10 @@ from repro_torch.models import modules  # noqa: E402
 from repro_torch.models.tp import TP  # noqa: E402
 
 ATOL = 1e-4
-KEY = jax.random.PRNGKey(0)
-
-
-def _cfgs(arch, **kw):
-    return (jax_config(arch).reduced(**kw), get_config(arch).reduced(**kw))
-
-
-SSM_LEAVES = ("A_log", "dt_bias", "'D'", "conv_b")
-
-
-def _draw(init, seed=0):
-    """Numpy weights of the shapes ``init`` (a JAX init taking a key)
-    makes: norm scales near 1, biases near 0, fan-in-scaled matrices; a
-    Mamba2 mixer's SSM leaves keep the JAX init's own values (its decays
-    and step sizes; random ones leave the ranges the model runs in)."""
-    rng = np.random.default_rng(seed)
-    own = init(KEY)
-
-    def one(path, s, v):
-        name = jax.tree_util.keystr(path)
-        if any(k in name for k in SSM_LEAVES):
-            return np.asarray(v)
-        if "scale" in name:
-            return (1.0 + 0.1 * rng.standard_normal(s.shape)).astype(np.float32)
-        scale = 0.1 if len(s.shape) == 1 or "'b'" in name else \
-            s.shape[-2] ** -0.5
-        return (scale * rng.standard_normal(s.shape)).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(one, jax.eval_shape(init, KEY),
-                                            own)
-
-
-def _both(np_tree):
-    """(the JAX package's params, the port's) from one numpy tree."""
-    return jax.tree.map(jnp.asarray, np_tree), M.params_from_numpy(np_tree)
 
 
 def _close(got, want, atol=ATOL):
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
-                               atol=atol)
-
-
-def _x(shape, seed):
-    return np.random.default_rng(seed).standard_normal(shape).astype(
-        np.float32)
+    close(got, want, atol)
 
 
 # ------------------------------ configs, tree ----------------------------
@@ -126,16 +88,21 @@ def test_init_params_is_deterministic_in_the_seed_and_has_the_layout():
 
 
 def test_unported_parts_raise():
+    """Only tensor parallelism (ROADMAP Queue 1 item 12) still raises:
+    every slot type of the JAX package is a real slot of the port, and
+    ``init_params`` builds every architecture at reduced size with the
+    JAX package's leaf shapes."""
     with pytest.raises(NotImplementedError, match="item 12"):
         TP("tensor", 2)
-    for name in ("moe", "mlstm", "slstm", "enc", "dec"):
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            blocks.BLOCKS[name].init
-    for arch in ("olmoe-1b-7b", "xlstm-125m"):
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            M.init_params(0, get_config(arch).reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        M.init_params(0, get_config("whisper-base").reduced(), device="cpu")
+    assert set(blocks.BLOCKS) == set(jblocks.BLOCKS)
+    for name, slot in blocks.BLOCKS.items():
+        assert isinstance(slot, type) and callable(slot.init), name
+    for arch in ARCH_IDS:
+        jcfg, cfg = _cfgs(arch)
+        shapes = [tuple(x.shape) for x in jax.tree.leaves(
+            jax.eval_shape(lambda k: JM.init_params(k, jcfg), KEY))]
+        p = M.init_params(0, cfg, device="cpu")
+        assert [tuple(x.shape) for x in tree.leaves(p)] == shapes, arch
 
 
 # ------------------------------- modules ---------------------------------

@@ -5,6 +5,7 @@
     python3 tools/kernel_experiments.py ab --baseline FILE
     python3 tools/kernel_experiments.py k4r2
     python3 tools/kernel_experiments.py quant [--no-cuts] [--baseline FILE]
+    python3 tools/kernel_experiments.py families
 
 ``k5``: where the SSD scan's (K5) time goes. Builds variants of
 ``csrc/ssd_scan.cu`` into ``build/experiments/``, each with pieces of
@@ -64,6 +65,17 @@ streaming; and the unmodified kernel with its re-read branch forced (z
 not kept on chip). Every time is beside the one with the L2 left clean
 (``chip_smoke.time_ms(clean=True)``). ``--no-cuts`` stops after the
 times.
+
+``families``: where the prefill time of the model families of phases
+M, X and W goes: olmoe-1b-7b and xlstm-125m at B=4, S=2048 and
+whisper-base over [4, 1500] frames and 448 tokens, in bf16 with
+``use_flash_attention=1`` (random weights, seed 0), one warm-up forward,
+then one forward under ``torch.profiler``: its wall time, the device
+kernels' time summed by kind (matrix products, flash attention, casts
+and copies, sort, index and scatter, scans, reductions, other
+elementwise), the five kernels that took the most,
+their count, and the device's idle share (1 - kernel time / wall time;
+one stream, so kernels do not overlap).
 
 Each result is one JSON line; the card's name and power limit come last.
 """
@@ -635,6 +647,93 @@ def quant(cuts=True, baseline=None):
             qops._quantize_plan = plan
 
 
+KERNEL_KINDS = (            # (kind, substrings of a device kernel's name)
+    ("flash_attention", ("flash_attention",)),
+    ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk",
+                "dot_kernel")),
+    ("cast_copy", ("copy", "cat")),
+    ("sort", ("sort", "radix")),
+    ("index_scatter", ("index", "scatter", "gather")),
+    ("scan", ("cumsum", "scan")),
+    ("reduce", ("reduce", "softmax", "norm")),
+    ("elementwise", ("elementwise", "vectorized", "launch_kernel")),
+)
+
+
+def kernel_kind(name):
+    low = name.lower()
+    for kind, keys in KERNEL_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def families():
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke as c
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    for name in ("flash_attention", "flash_attention_sm90"):
+        build.build(name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ("olmoe-1b-7b", "xlstm-125m", "whisper-base"):
+        cfg = get_config(arch).with_overrides(tensor_parallel=1,
+                                              use_flash_attention=1)
+        params = M.init_params(0, cfg, device="cuda")
+        rng = np.random.default_rng(0)
+        if cfg.family == "audio":
+            frames = torch.as_tensor(rng.standard_normal(
+                (c.PREFILL_B, cfg.num_audio_frames, cfg.d_model)).astype(
+                np.float32), device="cuda")
+            toks, _ = SyntheticLM(vocab_size=cfg.vocab_size, seed=0).sample(
+                rng, c.PREFILL_B, cfg.max_target_positions)
+            tokens = torch.as_tensor(toks, device="cuda")
+
+            def fwd():
+                return M.sequential_encdec_forward(params, cfg, frames,
+                                                   tokens)[0]
+        else:
+            toks, _ = SyntheticLM(vocab_size=cfg.vocab_size, seed=0).sample(
+                rng, c.PREFILL_B, c.PREFILL_S)
+            tokens = torch.as_tensor(toks, device="cuda")
+
+            def fwd():
+                return M.sequential_lm_forward(params, cfg, tokens)[0]
+        with torch.no_grad():
+            fwd()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fwd()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        by_kind, by_name, count, total = {}, {}, 0, 0.0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            ms = e.time_range.elapsed_us() / 1e3
+            kind = kernel_kind(e.name)
+            by_kind[kind] = by_kind.get(kind, 0.0) + ms
+            by_name[e.name[:100]] = by_name.get(e.name[:100], 0.0) + ms
+            count += 1
+            total += ms
+        emit(family=cfg.family, config=arch, dtype=cfg.dtype,
+             wall_ms=wall * 1e3, device_kernel_ms=total, kernels=count,
+             idle_share=1.0 - total / (wall * 1e3),
+             device_ms_by_kind=dict(sorted(by_kind.items(),
+                                           key=lambda kv: -kv[1])),
+             top_kernels_ms=dict(sorted(by_name.items(),
+                                        key=lambda kv: -kv[1])[:5]))
+        del params, prof
+        torch.cuda.empty_cache()
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="what", required=True)
@@ -642,6 +741,7 @@ def main():
     q = sub.add_parser("ab")
     q.add_argument("--baseline", required=True)
     sub.add_parser("k4r2")
+    sub.add_parser("families")
     q = sub.add_parser("quant")
     q.add_argument("--no-cuts", action="store_true")
     q.add_argument("--baseline")
@@ -657,6 +757,8 @@ def main():
         ab(args.baseline)
     elif args.what == "k4r2":
         k4r2()
+    elif args.what == "families":
+        families()
     else:
         quant(not args.no_cuts, args.baseline)
     print(c.card_line(), flush=True)
