@@ -66,10 +66,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      heads (H=Hkv=32, dh=112) B=4, S=2048 causal and B=1, S=32 causal
      (fewer rows than a block), at olmoe-1b-7b's (H=Hkv=16, dh=128) B=4,
      S=2048 causal and at whisper-base's encoder (H=Hkv=8, dh=64) B=4,
-     1,500 frames non-causal, each in f32, bf16 and bf16 q over f32
+     1,500 frames non-causal, and at phase E's microbatches of one row
+     (qwen2's heads at S=1024, 256 and 2048 causal, Whisper's encoder),
+     each in f32, bf16 and bf16 q over f32
      k/v; and dh=32, 64 at small sizes in those and f32 q over bf16 k/v;
      then on the strided views the model passes: q, k, v as ``[B, S,
-     heads, dh].transpose(1, 2)`` (qwen2's and zamba2's S=2048 causal),
+     heads, dh].transpose(1, 2)`` (qwen2's and zamba2's S=2048 causal,
+     phase E's training microbatch),
      the 512-row chunk at q_offset 1536 over a slice of a ``[B, 2056,
      Hkv, dh]`` cache, and zamba2's 32 rows at q_offset 8 over a 40-row
      slice of a 48-row cache, in bf16, f32 (and bf16 q over the f32
@@ -151,6 +154,37 @@ Phases, each fatal on failure (exit code 1, no result line):
      forward (6 non-causal over the 1,500 frames, 6 causal over 448;
      cross-attention takes the plain path, as in the JAX package); (ii)
      16 decode steps with ``kv_source`` within 1e-3 of the f32 forward;
+  E. the pipeline engine (``repro_torch.pipeline``) on a (data, stage,
+     tensor) = (1, 4, 1) ``LocalMesh`` folded onto the card, qwen2-1.5b
+     at full width (random weights, seed 0; tokens from ``SyntheticLM``):
+     (i) an f32 parity step, B=2, S=256, 2 microbatches, remat: the loss
+     within 1e-4 abs and every gradient leaf within 1e-4 relative L2 of
+     the sequential forward + cross-entropy, 112 K4 launches on route 2;
+     (ii) six bf16 train steps, B=4, S=1,024, 4 microbatches, remat,
+     Adam at ``ENGINE_TRAIN_LR`` on one repeated batch, stash depth 2,
+     blend every 2: losses finite, the mean of the last two below the
+     first, the stash after step 1 the initial params bit for bit, at
+     steps 2, 4, 6 the blend's last stage the new params and its earlier
+     stages an independent 0.5 blend bit for bit (``checked_blends``),
+     224 K4 launches a step, all on route 1; step ms, tokens/s and peak
+     memory printed; (iii) pipelined prefill, 4 microbatches, bf16 at
+     B=4, S=2048 (the last position's logits within 2e-2 rel L2 of the
+     sequential kernel forward, 112 K4 launches on route 1) and f32 at
+     S=512 (1e-3); (iv) chunked prefill in 4 chunks into f32 caches and
+     8 serve steps, each within 1e-3 of the sequential forward /
+     ``sequential_decode_step`` on the same caches (112 K4 launches, then
+     none); (vi) a re-pack of the stacked slots at 10 slots a stage,
+     [7, 7, 7, 7] -> [8, 8, 6, 6] -> stage 2 lost, the logits within
+     2e-5 (measured 0) and the redistribution bytes printed; (v)
+     whisper-base at full width on (1, 2, 1), 3 f32 train steps, B=2, 2
+     microbatches, the first loss within 1e-4 of
+     ``sequential_encdec_forward``'s, 48 K4 launches a step, then 8 serve
+     steps with ``kv_source`` within 1e-3 of ``sequential_decode_step``;
+     (vii) ``python -m repro_torch.launch.train --debug-mesh 1,2,1
+     --steps 50 --lr 0.005 --ckpt-dir DIR`` (exit 0, "improved", a
+     checkpoint ``CheckpointStore.restore_latest`` reads back) and
+     ``python -m repro_torch.launch.serve`` (exit 0), as subprocesses
+     with a bounded wait;
   4. K1 again at every stage-slice size the run used, then each kernel's
      time beside its bound, its plain version's and, where one PyTorch
      call computes the same function, that call's (K1:
@@ -162,11 +196,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      as it may contract into an FMA; yardsticks the port never calls; no
      single PyTorch call computes K2 or K5), and for K2 and K3 the
      wrapper's host time a call (1,000 calls, no sync). K4 is timed in bf16 (route 1)
-     at every phase-A shape, and in f32 (route 2) at the seven shapes the
-     serving paths launch it at (qwen2's top shape and its 512-row chunk
-     at q_offset 1536, zamba2's top shape, its last 512-row chunk over the
-     2,056-row cache, its B=1, S=32 prefill, olmoe's prefill and
-     Whisper's encoder) beside the library call
+     at every phase-A shape, and in f32 (route 2) at the nine shapes the
+     serving paths and the engine launch it at (qwen2's top shape and its
+     512-row chunk at q_offset 1536, zamba2's top shape, its last 512-row
+     chunk over the 2,056-row cache, its B=1, S=32 prefill, olmoe's
+     prefill, Whisper's encoder, and phase E's one-row parity and
+     Whisper encoder microbatches) beside the library call
      in f32 with TF32 off, each beside its f32 (CUDA-core) and 3xTF32
      (tensor-core) bound.
 
@@ -940,39 +975,46 @@ def tcp_phase(torch, counters, profile, fused_res, fused):
     return out
 
 
-def entry_point_phase():
-    """Phase L: the README's entry point as a user starts it, in its own
-    process group, with a bounded wait (the whole group is killed on
-    timeout, so no worker process outlives the smoke)."""
+def run_entry_point(args, phase, timeout=300):
+    """``python -m <args>`` as a user starts it, in its own process group,
+    with a bounded wait (the whole group is killed on timeout, so no
+    process outlives the smoke). Fails unless it exits 0. Returns (its
+    standard output, wall s)."""
     import signal
-    cmd = [sys.executable, "-m", "repro_torch.launch.live_train",
-           "--chain", "mobilenet", "--workers", "3", "--batches", "20",
-           "--kill", "1@8", "--transport", "tcp"]
+    cmd = [sys.executable, "-m", *args]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    log("phase L: " + " ".join(cmd[1:]))
+    log(f"phase {phase}: " + " ".join(args))
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             start_new_session=True)
     try:
-        out, err = proc.communicate(timeout=300)
+        out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
-        raise SmokeFailure("phase L: the entry point did not finish in "
-                           "300 s")
+        raise SmokeFailure(f"phase {phase}: {args[0]} did not finish in "
+                           f"{timeout} s")
     wall = time.perf_counter() - t0
     for line in out.splitlines():
         log(f"  | {line}")
     check(proc.returncode == 0,
-          f"phase L: exit code {proc.returncode}; stderr tail: "
-          f"{err[-2000:]}")
+          f"phase {phase}: {args[0]} exit code {proc.returncode}; stderr "
+          f"tail: {err[-2000:]}")
+    return out, wall
+
+
+def entry_point_phase():
+    """Phase L: the README's entry point as a user starts it."""
+    args = ["repro_torch.launch.live_train", "--chain", "mobilenet",
+            "--workers", "3", "--batches", "20", "--kill", "1@8",
+            "--transport", "tcp"]
+    out, wall = run_entry_point(args, "L")
     check("worker exit codes: {1: -9, 2: 0}" in out,
           "phase L: the entry point did not report worker exit codes "
           "{1: -9, 2: 0}")
     check("recovered: 2 workers" in out, "phase L: no recovery reported")
-    out_line = {"command": " ".join(cmd[1:]), "wall_s": wall,
-                "exit_code": proc.returncode}
+    out_line = {"command": " ".join(args), "wall_s": wall, "exit_code": 0}
     print(json.dumps({"entry_point": out_line}), flush=True)
     return out_line
 
@@ -993,7 +1035,7 @@ def flash_shapes():
            (4, H, Hkv, 1000, 1000, dh, False, 0, 0),
            (4, H, Hkv, 512, 2048, dh, True, 0, 1536),
            (4, 32, 32, 2048, 2048, 112, True, 0, 0),   # zamba2-7b's
-           OLMOE_PREFILL, WHISPER_ENCODER]
+           OLMOE_PREFILL, WHISPER_ENCODER, *ENGINE_MICROBATCHES]
     small = [(2, 4, 2, 200, 200, d, True, 64, 0) for d in (32, 64)]
     small += [(2, 4, 2, 130, 130, d, False, 0, 0) for d in (32, 64)]
     return big, small
@@ -1004,6 +1046,15 @@ ZAMBA2_SHORT = (1, 32, 32, 32, 32, 112, True, 0, 0)
 # phase M's and phase W's encoder shapes
 OLMOE_PREFILL = (4, 16, 16, 2048, 2048, 128, True, 0, 0)
 WHISPER_ENCODER = (4, 8, 8, 1500, 1500, 64, False, 0, 0)
+# phase E's microbatches of one row (the engine's B_l / M): qwen2-1.5b's
+# heads at the bf16 training length, at the f32 parity step's and at the
+# pipelined prefill's, and whisper-base's encoder
+ENGINE_TRAIN_MB = (1, 12, 2, 1024, 1024, 128, True, 0, 0)
+ENGINE_PARITY_MB = (1, 12, 2, 256, 256, 128, True, 0, 0)
+ENGINE_PREFILL_MB = (1, 12, 2, 2048, 2048, 128, True, 0, 0)
+WHISPER_ENCODER_MB = (1, 8, 8, 1500, 1500, 64, False, 0, 0)
+ENGINE_MICROBATCHES = (ENGINE_TRAIN_MB, ENGINE_PARITY_MB, ENGINE_PREFILL_MB,
+                       WHISPER_ENCODER_MB)
 
 
 def route2_shapes():
@@ -1011,11 +1062,13 @@ def route2_shapes():
     prefill and its last 512-row chunk (q_offset 1536, over 2048 keys),
     zamba2's prefill, its last chunk (over the 2,056-row cache that
     ``chunk_attention`` hands the kernel whole), its B=1, S=32 prefill,
-    olmoe's prefill and Whisper's encoder."""
+    olmoe's prefill and Whisper's encoder; then the engine's f32
+    microbatches (phase E): the parity step's and Whisper's encoder's."""
     big = flash_shapes()[0]
     return [big[0], big[4], big[5],
             (4, 32, 32, 512, PREFILL_S + DECODE_STEPS, 112, True, 0, 1536),
-            ZAMBA2_SHORT, OLMOE_PREFILL, WHISPER_ENCODER]
+            ZAMBA2_SHORT, OLMOE_PREFILL, WHISPER_ENCODER, ENGINE_PARITY_MB,
+            WHISPER_ENCODER_MB]
 
 
 def describe(shape):
@@ -1074,7 +1127,8 @@ def flash_phase(torch, fops, fref):
     cases = [(sh, t, "contiguous") for sh in big + [ZAMBA2_SHORT]
              for t in served]
     cases += [(sh, t, "contiguous") for sh in small for t in types]
-    cases += [(big[i], t, "model") for i in (0, 5) for t in ("bf16", "f32")]
+    cases += [(sh, t, "model") for sh in (big[0], big[5], ENGINE_TRAIN_MB)
+              for t in ("bf16", "f32")]
     # the q_offset chunk over a slice of the cache: qwen2's 512 rows over
     # 2048 of 2056, zamba2's 32 rows at q_offset 8 over 40 of 48
     cases += [(sh, t, "cache") for sh in
@@ -2721,6 +2775,454 @@ def whisper_phase(torch, fops):
     return summary
 
 
+# ---------------------- the pipeline engine on the card (E) ----------------
+
+# phase E (ii): Adam's learning rate for the bf16 training run, chosen
+# before the first run and not tuned to its result. Adam's first update
+# moves every weight by the lr (m / sqrt(v) = sign(g)); at 3e-4 that is
+# ~1% of qwen2's weight scale (0.0255) in one coherent direction, ~30% of
+# a matrix's norm, so 1e-5, a warm-up's early value. The run repeats ONE
+# SyntheticLM batch: whether six steps lower the loss is then a property
+# of the step, not of how much four updates generalise to fresh batches.
+ENGINE_TRAIN_LR = 1e-5
+ENGINE_TRAIN_B, ENGINE_TRAIN_S, ENGINE_TRAIN_M, ENGINE_TRAIN_STEPS = (
+    4, 1024, 4, 6)
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b|| in f64 (0 where both are 0)."""
+    a, b = a.double(), b.double()
+    den = b.norm().item()
+    num = (a - b).norm().item()
+    return num / den if den else num
+
+
+def engine_grads(loss_fn, params, batch, torch):
+    """(total, metrics, gradients) of ``loss_fn`` at ``params``, taken as
+    ``make_train_step`` takes them: on detached copies of the leaves."""
+    from repro_torch import tree
+    leaves, paths = tree.flatten(params)
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    total, metrics = loss_fn(tree.unflatten(paths, live), batch)
+    grads = torch.autograd.grad(total, live, allow_unused=True)
+    return total.detach(), metrics, [
+        torch.zeros_like(t) if g is None else g for g, t in zip(grads, live)]
+
+
+def sequential_grads(params, cfg, tokens, labels, torch):
+    """The port's sequential forward + cross-entropy: (loss, gradients)."""
+    import torch.nn.functional as F
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    leaves, paths = tree.flatten(params)
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    logits = M.sequential_lm_forward(tree.unflatten(paths, live), cfg,
+                                     tokens)[0]
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1).long())
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(t) if g is None else g
+                           for g, t in zip(grads, live)]
+
+
+@contextlib.contextmanager
+def checked_blends(found, torch):
+    """Wraps the engine's ``_stage_window_blend`` (the smoke's recorder; the
+    package reads no switch): at each call, on the step's own tensors, the
+    last stage of the result must be the new params bit for bit and every
+    earlier stage an independent 0.5 blend of (new, stash) bit for bit.
+    Appends (leaves, last stage equal, earlier stages equal) to
+    ``found``."""
+    from repro_torch import tree
+    from repro_torch.pipeline import pipeline_step as ps
+    blend = ps._stage_window_blend
+
+    def checking(cfg, new_blocks, stash_blocks):
+        out = blend(cfg, new_blocks, stash_blocks)
+        S = cfg.pipeline_stages
+        last, early, n_leaves = True, True, 0
+        for o, n, st in zip(tree.leaves(out), tree.leaves(new_blocks),
+                            tree.leaves(stash_blocks)):
+            n_leaves += 1
+            last &= torch.equal(o[S - 1], n[S - 1])
+            half = (0.5 * n[:S - 1].to(torch.float32)
+                    + 0.5 * st[:S - 1].to(torch.float32)).to(n.dtype)
+            early &= torch.equal(o[:S - 1], half)
+        found.append((n_leaves, bool(last), bool(early)))
+        return out
+
+    ps._stage_window_blend = checking
+    try:
+        yield
+    finally:
+        ps._stage_window_blend = blend
+
+
+def engine_phase(torch, fops):
+    """Phase E: qwen2-1.5b at full width through the pipeline engine on
+    a (1, 4, 1) mesh folded onto the card (f32 parity step, bf16 training,
+    pipelined and chunked prefill, decode), whisper-base through its
+    audio branch, a full-width re-pack, and the train and serve entry
+    points. Returns its summary."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.pipeline import repack as rp
+    from repro_torch.pipeline.pipeline_step import (make_prefill_step,
+                                                    make_serve_step,
+                                                    make_train_step,
+                                                    pipeline_forward)
+    K = fops.flash_attention_kernel
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-1.5b").with_overrides(tensor_parallel=1,
+                                                  use_flash_attention=1)
+    cfg32 = cfg.with_overrides(dtype="float32")
+    S_st, L = cfg.pipeline_stages, cfg.num_layers
+    n_slots = S_st * cfg.layers_per_stage      # each runs K4 (pads too)
+    check((S_st, cfg.layers_per_stage, cfg.d_model, cfg.vocab_size)
+          == (4, 7, 1536, 151_936), f"qwen2-1.5b at its published widths: "
+          f"{cfg}")
+    mesh = make_debug_mesh(1, S_st, 1, device="cuda")
+    V = cfg.vocab_size
+    lm = SyntheticLM(vocab_size=V, seed=0)
+    launches, route1 = {}, {}
+    summary = {"config": f"{cfg.name} tensor_parallel=1 "
+                         f"use_flash_attention=1, mesh (data, stage, "
+                         f"tensor) = (1, {S_st}, 1)"}
+
+    def counted(name, fn):
+        """fn() with K4's counts set to 0 just before and read just
+        after; returns fn's result."""
+        reset_k4(K)
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name], route1[name] = K.launches, K.launches_route1
+        return out
+
+    def batch_of(B, S, seed):
+        x, y = lm.sample(np.random.default_rng(seed), B, S)
+        return (torch.as_tensor(x, device="cuda"),
+                torch.as_tensor(y, device="cuda"))
+
+    params = M.init_params(0, cfg, device="cuda")
+
+    # ---- (i) the f32 parity step against the sequential forward ---------
+    B, S, Mb = 2, 256, 2
+    tokens, labels = batch_of(B, S, 2)
+    _, loss_fn = make_train_step(mesh, cfg32, TrainConfig(
+        learning_rate=1e-4, optimizer="adam", microbatches=Mb, remat=True,
+        weight_decay=0.0))
+    total, metrics, grads = counted("parity_f32", lambda: engine_grads(
+        loss_fn, params, {"tokens": tokens, "labels": labels}, torch))
+    ref, ref_grads = sequential_grads(params, cfg32, tokens, labels, torch)
+    loss_err = abs(float(metrics["loss"]) - float(ref))
+    worst_rel = max(rel_l2(g, r) for g, r in zip(grads, ref_grads))
+    log(f"E (i) f32 parity step, B={B} S={S} M={Mb}, remat: loss "
+        f"{float(metrics['loss']):.6f}, sequential {float(ref):.6f} "
+        f"(|diff| {loss_err:.3g}); largest gradient rel L2 {worst_rel:.3g} "
+        f"over {len(grads)} leaves; K4 launches {launches['parity_f32']} "
+        f"({route1['parity_f32']} on route 1)")
+    check(launches["parity_f32"] == 2 * n_slots * Mb
+          and route1["parity_f32"] == 0,
+          f"parity step: {launches['parity_f32']} K4 launches "
+          f"({route1['parity_f32']} on route 1), not {2 * n_slots * Mb} "
+          f"on route 2")
+    check(loss_err <= 1e-4, f"parity loss off by {loss_err} (> 1e-4)")
+    check(worst_rel <= 1e-4, f"parity gradient rel L2 {worst_rel} (> 1e-4)")
+    summary.update(parity_loss_abs_diff=loss_err,
+                   parity_grad_max_rel_l2=worst_rel)
+    del grads, ref_grads, total, metrics, ref
+
+    # ---- (ii) bf16 training: Adam, stash 2, blend every 2, remat --------
+    B, S, Mb, n_steps = (ENGINE_TRAIN_B, ENGINE_TRAIN_S, ENGINE_TRAIN_M,
+                         ENGINE_TRAIN_STEPS)
+    tcfg = cfg.with_overrides(stash_depth=2, aggregate_every=2)
+    step_fn, _ = make_train_step(mesh, tcfg, TrainConfig(
+        learning_rate=ENGINE_TRAIN_LR, optimizer="adam", microbatches=Mb,
+        remat=True, weight_decay=0.0))
+    data = [batch_of(B, S, 1)] * n_steps
+    state = step_fn.init_state(params)
+    initial = [t.clone() for t in tree.leaves(params)]
+    del params
+    found, losses, step_ms, per_step = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    with checked_blends(found, torch):
+        for i, (x, y) in enumerate(data):
+            before = len(found)
+            reset_k4(K)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prev_params = state["params"]
+            state, m = step_fn(state, {"tokens": x, "labels": y})
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append((K.launches, K.launches_route1,
+                             len(found) - before))
+            if i == 0:
+                check(all(a is b for a, b in zip(
+                    tree.leaves(state["stash"]), tree.leaves(prev_params)))
+                    and all(torch.equal(a, b) for a, b in zip(
+                        tree.leaves(state["stash"]), initial)),
+                      "the stash after step 1 is not the initial params "
+                      "bit for bit")
+                del initial
+            del prev_params
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches["train_bf16"] = sum(n for n, _, _ in per_step)
+    route1["train_bf16"] = sum(r for _, r, _ in per_step)
+    med = statistics.median(step_ms)
+    log(f"E (ii) bf16 training B={B} S={S} M={Mb} (one batch), Adam lr "
+        f"{ENGINE_TRAIN_LR}, stash 2, blend every 2: losses "
+        f"{[round(v, 4) for v in losses]}; step ms {[round(v, 1) for v in step_ms]} "
+        f"(median {med:.1f}: {B * S / med * 1e3:,.0f} tokens/s); peak "
+        f"{peak_gb:.1f} GB; K4 launches a step {[n for n, _, _ in per_step]} "
+        f"(route 1: {[r for _, r, _ in per_step]}); blends checked "
+        f"{[b for _, _, b in per_step]} ({found})")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(np.mean(losses[-2:]) < losses[0],
+          f"training did not lower the loss: {losses}")
+    check(all(n == r == 2 * n_slots * Mb for n, r, _ in per_step),
+          f"K4 launches a step {per_step}, not {2 * n_slots * Mb} on "
+          f"route 1")
+    check([b for _, _, b in per_step] == [0, 1] * (n_steps // 2),
+          f"blends by step {[b for _, _, b in per_step]}")
+    check(all(last and early for _, last, early in found),
+          f"blend identities broken: {found}")
+    summary.update(train_losses=losses, train_step_ms=step_ms,
+                   train_step_ms_median=med,
+                   train_tokens_per_s=B * S / med * 1e3,
+                   train_peak_gb=peak_gb, train_lr=ENGINE_TRAIN_LR)
+    del state, data, m
+    free_card(torch)
+    params = M.init_params(0, cfg, device="cuda")       # the same draw
+
+    with torch.no_grad():
+        # ---- (iii) pipelined prefill, bf16, against the sequential ----
+        B, S, Mb = PREFILL_B, PREFILL_S, 4
+        prompt, _ = batch_of(B, S + DECODE_STEPS, 3)
+        prefill = make_prefill_step(mesh, cfg, num_microbatches=Mb)
+        prefill(params, {"tokens": prompt[:, :S]})         # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = counted("prefill_bf16", lambda: prefill(
+            params, {"tokens": prompt[:, :S]}))
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        want = M.sequential_lm_forward(params, cfg, prompt[:, :S])[0][:, -1]
+        rel = rel_l2(got[:, 0, :V], want)
+        log(f"E (iii) pipelined prefill bf16 B={B} S={S} M={Mb}: "
+            f"{prefill_ms:.1f} ms ({B * S / prefill_ms * 1e3:,.0f} tokens/s); "
+            f"last logits rel L2 {rel:.3g} from the sequential kernel "
+            f"forward; K4 launches {launches['prefill_bf16']} (route 1: "
+            f"{route1['prefill_bf16']})")
+        check(launches["prefill_bf16"] == route1["prefill_bf16"]
+              == n_slots * Mb,
+              f"prefill: {launches['prefill_bf16']} K4 launches "
+              f"({route1['prefill_bf16']} on route 1), not {n_slots * Mb}")
+        check(bool(torch.isfinite(got).all()) and rel <= 2e-2,
+              f"bf16 pipelined prefill rel L2 {rel} (> 2e-2)")
+        del got, want
+        S32 = min(512, S)
+        got = counted("prefill_f32", lambda: make_prefill_step(
+            mesh, cfg32, num_microbatches=Mb)(
+                params, {"tokens": prompt[:, :S32]}))
+        want = M.sequential_lm_forward(params, cfg32,
+                                       prompt[:, :S32])[0][:, -1]
+        err32 = (got[:, 0, :V] - want).abs().max().item()
+        log(f"E (iii) pipelined prefill f32 B={B} S={S32}: last logits "
+            f"{err32:.3g} from the sequential kernel forward; K4 launches "
+            f"{launches['prefill_f32']}")
+        check(launches["prefill_f32"] == n_slots * Mb
+              and route1["prefill_f32"] == 0,
+              f"f32 prefill: {launches['prefill_f32']} K4 launches")
+        check(err32 <= 1e-3, f"f32 pipelined prefill off by {err32}")
+        summary.update(prefill_bf16_ms=prefill_ms,
+                       prefill_tokens_per_s=B * S / prefill_ms * 1e3,
+                       prefill_bf16_rel_l2=rel,
+                       prefill_f32_max_abs_diff=err32)
+        del got, want
+
+        # ---- (iv) chunked prefill into the caches, then decode, f32 ----
+        chunks = 4
+        caches = M.init_caches(cfg32, batch=B, cache_len=S + DECODE_STEPS,
+                               dtype=torch.float32, device="cuda")
+        last, c_eng = counted("chunked_prefill", lambda: make_prefill_step(
+            mesh, cfg32, seq_chunks=chunks)(
+                params, {"tokens": prompt[:, :S]}, caches))
+        want = M.sequential_lm_forward(params, cfg32, prompt[:, :S])[0][:, -1]
+        err_chunk = (last[:, 0, :V] - want).abs().max().item()
+        del want
+        serve = make_serve_step(mesh, cfg32)
+        c_seq = c_eng
+        err_dec = 0.0
+        reset_k4(K)
+        for t in range(S, S + DECODE_STEPS):
+            tok = prompt[:, t:t + 1]
+            lg, c_eng = serve(params, tok, c_eng, t)
+            ref, c_seq = M.sequential_decode_step(params, cfg32, tok,
+                                                  c_seq, t)
+            err_dec = max(err_dec, (lg[..., :V] - ref).abs().max().item())
+        torch.cuda.synchronize()
+        launches["decode"], route1["decode"] = K.launches, K.launches_route1
+        log(f"E (iv) {chunks} chunks of {S // chunks} (f32): last logits "
+            f"{err_chunk:.3g} from the sequential forward, K4 launches "
+            f"{launches['chunked_prefill']}; {DECODE_STEPS} serve steps: "
+            f"{err_dec:.3g} from sequential_decode_step on the same "
+            f"caches, K4 launches {launches['decode']}")
+        check(launches["chunked_prefill"] == n_slots * chunks
+              and route1["chunked_prefill"] == 0,
+              f"chunked prefill: {launches['chunked_prefill']} K4 launches")
+        check(launches["decode"] == 0, "decode launched K4")
+        check(err_chunk <= 1e-3 and err_dec <= 1e-3,
+              f"chunked prefill / decode off by {err_chunk}, {err_dec}")
+        summary.update(chunked_prefill_max_abs_diff=err_chunk,
+                       decode_max_abs_diff=err_dec)
+        del caches, c_eng, c_seq, last, lg, ref
+    del params
+    free_card(torch)
+
+    # ---- (vi) re-pack at full width, then after losing stage 2 ----------
+    # ceil(28 / 3) = 10 slots a stage: three survivors must hold the 28
+    # layers (8 a stage would hold 24)
+    lps = -(-L // (S_st - 1))
+    rcfg = cfg32.with_overrides(layers_per_stage=lps,
+                                slot_layout=("dense",) * lps)
+    rparams = M.init_params(1, rcfg, device="cuda")
+    a_old = M.default_assignment(rcfg)                  # [7, 7, 7, 7]
+    q = L // S_st
+    a_new = [q + 1, q + 1, q - 1, q - 1]                # [8, 8, 6, 6]
+    a_lost = rp.recover_assignment_after_stage_loss(rcfg, a_new, 2)
+    layer_bytes = sum(t[0].numel() * t.element_size()
+                      for t in tree.leaves(rparams["blocks"][0]))
+    toks, _ = batch_of(1, 256, 4)
+    with torch.no_grad():
+        base = M.sequential_lm_forward(rparams, rcfg, toks,
+                                       assignment=a_old)[0]
+        errs, moved = [], []
+        blocks, cur = rparams["blocks"], a_old
+        for nxt in (a_new, a_lost):
+            plan = rp.make_repack_plan(rcfg, cur, nxt)
+            blocks = rp.repack_blocks(blocks, plan, rcfg)
+            got = M.sequential_lm_forward(dict(rparams, blocks=blocks), rcfg,
+                                          toks, assignment=nxt)[0]
+            errs.append((got - base).abs().max().item())
+            moved.append(rp.redistribution_bytes(rcfg, plan, layer_bytes))
+            cur = nxt
+    log(f"E (vi) re-pack {a_old} -> {a_new} -> {a_lost} (stage 2 lost), "
+        f"{rcfg.layers_per_stage} slots a stage: max |logit change| "
+        f"{errs}; redistribution bytes {moved} ({layer_bytes:,} a layer)")
+    check(all(e <= 2e-5 for e in errs), f"re-pack moved the logits {errs}")
+    summary.update(repack_assignments=[a_old, a_new, a_lost],
+                   repack_max_abs_diff=errs, repack_bytes=moved)
+    del rparams, blocks, base, got
+    free_card(torch)
+
+    # ---- (v) whisper-base through the engine's audio branch, f32 --------
+    wcfg = get_config("whisper-base").with_overrides(
+        tensor_parallel=1, use_flash_attention=1, dtype="float32")
+    wmesh = make_debug_mesh(1, wcfg.pipeline_stages, 1, device="cuda")
+    wparams = M.init_params(0, wcfg, device="cuda")
+    B, F_, T, Mb = 2, wcfg.num_audio_frames, wcfg.max_target_positions, 2
+    frames = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (B, F_, wcfg.d_model)).astype(np.float32), device="cuda")
+    x, y = SyntheticLM(vocab_size=wcfg.vocab_size, seed=0).sample(
+        np.random.default_rng(5), B, T)
+    wtok, wlab = (torch.as_tensor(a, device="cuda") for a in (x, y))
+    with torch.no_grad():
+        logits = M.sequential_encdec_forward(wparams, wcfg, frames, wtok)[0]
+        wref = float(F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                     wlab.reshape(-1).long()))
+        del logits
+    wstep, _ = make_train_step(wmesh, wcfg, TrainConfig(
+        learning_rate=1e-4, optimizer="adam", microbatches=Mb, remat=True,
+        weight_decay=0.0))
+    wstate = wstep.init_state(wparams)
+    wlosses, wlaunch = [], []
+    for _ in range(3):
+        reset_k4(K)
+        wstate, m = wstep(wstate, {"frames": frames, "tokens": wtok,
+                                   "labels": wlab})
+        wlosses.append(float(m["loss"]))
+        wlaunch.append((K.launches, K.launches_route1))
+    launches["whisper_train"] = sum(n for n, _ in wlaunch)
+    route1["whisper_train"] = sum(r for _, r in wlaunch)
+    werr = abs(wlosses[0] - wref)
+    # per microbatch: every encoder slot's self-attention (6, non-causal
+    # over 1,500 frames) and every decoder slot's (6, causal over 448),
+    # again in the recompute
+    per = 2 * Mb * wcfg.pipeline_stages * (len(wcfg.slot_layout)
+                                           + len(wcfg.decoder_slot_layout))
+    log(f"E (v) whisper-base train B={B} M={Mb} (f32): losses {wlosses}, "
+        f"the first {werr:.3g} from sequential_encdec_forward's "
+        f"{wref:.6f}; K4 launches a step {[n for n, _ in wlaunch]}")
+    check(all(math.isfinite(v) for v in wlosses), f"whisper {wlosses}")
+    check(werr <= 1e-4, f"whisper first loss off by {werr} (> 1e-4)")
+    check(all(n == per and r == 0 for n, r in wlaunch),
+          f"whisper K4 launches {wlaunch}, not {per} a step on route 2")
+    del wstate, m
+    with torch.no_grad():
+        xe = M.embed_frames(wcfg, frames, torch.float32)[0]
+        kv = pipeline_forward(wmesh, wcfg, wparams["blocks"], xe,
+                              M.pad_mask(wcfg, device="cuda"),
+                              causal=False, remat=False)[0]
+        layout = wcfg.decoder_slot_layout
+        c_eng = M.init_caches(wcfg, batch=B, cache_len=T, layout=layout,
+                              dtype=torch.float32, device="cuda")
+        c_seq, werr_dec = c_eng, 0.0
+        wserve = make_serve_step(wmesh, wcfg)
+        reset_k4(K)
+        for t in range(8):
+            tok = wtok[:, t:t + 1]
+            lg, c_eng = wserve(wparams, tok, c_eng, t, kv_source=kv)
+            ref, c_seq = M.sequential_decode_step(wparams, wcfg, tok, c_seq,
+                                                  t, kv_source=kv)
+            werr_dec = max(werr_dec,
+                           (lg[..., :wcfg.vocab_size] - ref).abs().max()
+                           .item())
+        torch.cuda.synchronize()
+        launches["whisper_decode"] = K.launches
+        route1["whisper_decode"] = K.launches_route1
+    log(f"E (v) whisper-base 8 serve steps with kv_source: {werr_dec:.3g} "
+        f"from sequential_decode_step; K4 launches "
+        f"{launches['whisper_decode']}")
+    check(launches["whisper_decode"] == 0, "whisper decode launched K4")
+    check(werr_dec <= 1e-3, f"whisper decode off by {werr_dec} (> 1e-3)")
+    summary.update(whisper_losses=wlosses, whisper_loss_abs_diff=werr,
+                   whisper_decode_max_abs_diff=werr_dec)
+    del wparams, kv, c_eng, c_seq, frames
+    free_card(torch)
+
+    # ---- (vii) the entry points as a user starts them -------------------
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        out, train_s = run_entry_point(
+            ["repro_torch.launch.train", "--arch", "qwen2-1.5b",
+             "--debug-mesh", "1,2,1", "--steps", "50", "--lr", "0.005",
+             "--ckpt-dir", d], "E (vii)")
+        check("training qwen2-1.5b on cuda" in out and "(improved)" in out,
+              "launch.train did not train on the card or did not improve")
+        rcfg = get_config("qwen2-1.5b").reduced(
+            pipeline_stages=2, tensor_parallel=1, dtype="float32")
+        restored, step = CheckpointStore(d).restore_latest(
+            M.init_params(0, rcfg, device="cuda"))
+        check(step == 50 and all(bool(torch.isfinite(t).all())
+                                 for t in tree.leaves(restored)),
+              f"launch.train's checkpoint: step {step}")
+    out, serve_s = run_entry_point(["repro_torch.launch.serve"], "E (vii)")
+    check("tok/s on cuda" in out, "launch.serve did not report the card")
+    summary.update(k4_launches=launches, k4_route1=route1,
+                   entry_points_s={"train": train_s, "serve": serve_s},
+                   wall_s=time.perf_counter() - t_phase)
+    log(f"phase E took {summary['wall_s']:.1f}s")
+    print(json.dumps({"slice_engine": summary}), flush=True)
+    return summary
+
+
 def main():
     t_smoke = time.perf_counter()
     import torch
@@ -2836,6 +3338,10 @@ def main():
     w_run = whisper_phase(torch, fops)
     free_card(torch)
 
+    # ---- phase E: the pipeline engine (train, prefill, serve, re-pack) ------
+    e_run = engine_phase(torch, fops)
+    free_card(torch)
+
     # ---- phase 4: K1 at the run's slice sizes, then timings -----------------
     sizes = sorted({s for r in (res, *f_runs)
                     for _, pts in r.partitions
@@ -2905,12 +3411,13 @@ def main():
               **{f"zamba2_{r}": z_run[f"launches_{r}"]["K4"]
                  for r in z_runs},
               **{f"{name}_{r}": v for name, run in (
-                  ("olmoe", m_run), ("xlstm", x_run), ("whisper", w_run))
+                  ("olmoe", m_run), ("xlstm", x_run), ("whisper", w_run),
+                  ("engine", e_run))
                  for r, v in run["k4_launches"].items()}}
     top = k4_times[0]                    # B=4, S=2048, causal, bf16
     n_k4 = sum(by_run.values())
     n_route1 = sum(sum(run["k4_route1"].values())
-                   for run in (t_run, z_run, m_run, w_run))
+                   for run in (t_run, z_run, m_run, w_run, e_run))
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         # route 1 (bf16, the serving path's dtype) is the one timed here;

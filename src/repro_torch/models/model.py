@@ -16,8 +16,8 @@ cross-attention, ``params["dec_blocks"]``), with its parameter layout:
     [6, 5, 5, ...] leaves slot 5 of stages 1-15 a pad, whose mixer still
     runs.
 The sequential forward runs all S x Lps slots in order on one device;
-the pipeline engine that runs them across stages is ROADMAP Queue 1 item
-12.
+the pipeline engine (``pipeline/pipeline_step.py``) runs them in its
+stage schedule, microbatch by microbatch.
 """
 from __future__ import annotations
 

@@ -3,8 +3,10 @@
 The port of ``repro.models.tp``. The JAX package runs blocks inside
 ``shard_map`` over a tensor axis; one card has no such axis, so the port
 has ``TP.none()`` only: every collective is the identity and the shard's
-offset is 0. A ``TP`` with an axis raises until the pipeline engine is
-ported (ROADMAP Queue 1 item 12).
+offset is 0. The one-device pipeline engine folds the tensor axis (blocks
+run on whole weights, which computes the sum the JAX engine's ``psum``
+forms over shards). A ``TP`` with an axis raises until the multi-GPU
+backend (one process a GPU, NCCL) is ported (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -19,8 +21,9 @@ class TP:
     def __post_init__(self):
         if self.axis is not None or self.size != 1:
             raise NotImplementedError(
-                "tensor parallelism needs the pipeline engine, not ported "
-                "yet (ROADMAP Queue 1 item 12): use TP.none()")
+                "tensor parallelism over an axis needs the multi-GPU "
+                "backend, not ported yet (ROADMAP Queue 1 item 12): use "
+                "TP.none()")
 
     @staticmethod
     def none() -> "TP":
