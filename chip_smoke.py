@@ -185,6 +185,26 @@ Phases, each fatal on failure (exit code 1, no result line):
      checkpoint ``CheckpointStore.restore_latest`` reads back) and
      ``python -m repro_torch.launch.serve`` (exit 0), as subprocesses
      with a bounded wait;
+  D. the launch tooling (``compat``, ``launch/{analysis,cost_model,
+     specs,dryrun}.py``) on phase E's model and steps: (i) phase E's bf16
+     train step (B=4, S=1,024, M=4, remat, Adam) run once under
+     ``compat.cost_analysis`` on the card (K4 counted as its plain
+     version) and the same step traced on meta through ``dryrun``'s
+     ``trace_step``: the two FLOP counts equal, and per device (over the
+     4 folded stages) within 35% of ``cost_model.flops_per_device`` with
+     D=1, B_loc=4, M=4, mb=1, S=4, Tp=1, ticks=M; the same for phase E's
+     pipelined bf16 prefill (B=4, S=2,048, M=4); (ii) a ``{"roofline":
+     ...}`` line: the card's name and power limit, phase E's median step
+     and prefill ms, the counted FLOPs, ``model_flops``, the cost model's
+     terms on the H100 constants (the card does all 4 devices' work),
+     ``mfu`` = model FLOPs / (step s x 989.4e12), the counted FLOPs'
+     share of that peak, and the roofline bound over the measured step;
+     (iii) ``python -m repro_torch.launch.dryrun --arch qwen2-1.5b
+     --shape train_4k`` and ``--arch zamba2-7b --shape prefill_32k --set
+     use_flash_attention=1`` as subprocesses with a bounded wait: exit 0,
+     a report with the JAX report's keys, a per-device argument byte
+     count, and the traced FLOPs per device within 35% of the analytic
+     count at ticks = M;
   4. K1 again at every stage-slice size the run used, then each kernel's
      time beside its bound, its plain version's and, where one PyTorch
      call computes the same function, that call's (K1:
@@ -2858,12 +2878,14 @@ def checked_blends(found, torch):
         ps._stage_window_blend = blend
 
 
-def engine_phase(torch, fops):
+def engine_phase(torch, fops, handoff):
     """Phase E: qwen2-1.5b at full width through the pipeline engine on
     a (1, 4, 1) mesh folded onto the card (f32 parity step, bf16 training,
     pipelined and chunked prefill, decode), whisper-base through its
     audio branch, a full-width re-pack, and the train and serve entry
-    points. Returns its summary."""
+    points. Returns its summary; leaves in ``handoff`` the bf16 train
+    step, its state after the last step, its batch and the pipelined
+    prefill, for phase D."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch import tree
@@ -2942,9 +2964,9 @@ def engine_phase(torch, fops):
     B, S, Mb, n_steps = (ENGINE_TRAIN_B, ENGINE_TRAIN_S, ENGINE_TRAIN_M,
                          ENGINE_TRAIN_STEPS)
     tcfg = cfg.with_overrides(stash_depth=2, aggregate_every=2)
-    step_fn, _ = make_train_step(mesh, tcfg, TrainConfig(
-        learning_rate=ENGINE_TRAIN_LR, optimizer="adam", microbatches=Mb,
-        remat=True, weight_decay=0.0))
+    tc = TrainConfig(learning_rate=ENGINE_TRAIN_LR, optimizer="adam",
+                     microbatches=Mb, remat=True, weight_decay=0.0)
+    step_fn, _ = make_train_step(mesh, tcfg, tc)
     data = [batch_of(B, S, 1)] * n_steps
     state = step_fn.init_state(params)
     initial = [t.clone() for t in tree.leaves(params)]
@@ -2998,6 +3020,9 @@ def engine_phase(torch, fops):
                    train_step_ms_median=med,
                    train_tokens_per_s=B * S / med * 1e3,
                    train_peak_gb=peak_gb, train_lr=ENGINE_TRAIN_LR)
+    handoff.update(cfg=tcfg, train_config=tc, mesh=mesh, step_fn=step_fn,
+                   state=state, batch={"tokens": data[0][0],
+                                       "labels": data[0][1]})
     del state, data, m
     free_card(torch)
     params = M.init_params(0, cfg, device="cuda")       # the same draw
@@ -3041,6 +3066,7 @@ def engine_phase(torch, fops):
               and route1["prefill_f32"] == 0,
               f"f32 prefill: {launches['prefill_f32']} K4 launches")
         check(err32 <= 1e-3, f"f32 pipelined prefill off by {err32}")
+        handoff.update(prefill=prefill, prompt=prompt[:, :S])
         summary.update(prefill_bf16_ms=prefill_ms,
                        prefill_tokens_per_s=B * S / prefill_ms * 1e3,
                        prefill_bf16_rel_l2=rel,
@@ -3223,6 +3249,140 @@ def engine_phase(torch, fops):
     return summary
 
 
+# the report keys of ``python -m repro_torch.launch.dryrun`` (the JAX dry
+# run's, ``lower_s`` as ``trace_s`` and ``hlo_flops_raw`` as
+# ``traced_flops_per_device``)
+DRYRUN_KEYS = ("arch", "shape", "mesh", "chips", "stage_x_tensor",
+               "microbatches", "ticks", "data_sharded", "trace_s",
+               "compile_s", "traced_flops_per_device", "hlo_bytes_raw",
+               "hlo_collectives_raw", "bytes_per_device", "flops_per_device",
+               "collective_bytes_per_device", "hbm_bytes_per_device",
+               "roofline", "dominant", "model_flops", "useful_ratio")
+COST_MODEL_TOL = 0.35        # tests/test_substrates.py:165-198
+
+
+def launch_tooling_phase(torch, fops, handoff, e_run, card):
+    """Phase D: phase E's train step and pipelined prefill counted on the
+    card and traced on meta, set beside the cost model and the H100
+    roofline; then two dry runs as a user starts them. Prints the
+    ``{"roofline": ...}`` line and returns it."""
+    from repro_torch import compat
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import analysis, cost_model, dryrun
+    K = fops.flash_attention_kernel
+    t_phase = time.perf_counter()
+    cfg, mesh = handoff["cfg"], handoff["mesh"]
+    folded = cfg.pipeline_stages * cfg.tensor_parallel
+    Mb = handoff["train_config"].microbatches
+    out = {"card": card}
+    steps = {
+        "train": (handoff["batch"]["tokens"].shape, "train",
+                  e_run["train_step_ms_median"],
+                  lambda: handoff["step_fn"](handoff["state"],
+                                             handoff["batch"])),
+        "prefill": (handoff["prompt"].shape, "prefill",
+                    e_run["prefill_bf16_ms"],
+                    lambda: handoff["prefill"](handoff["state"]["params"],
+                                               {"tokens": handoff["prompt"]})),
+    }
+    for name, ((B, S), kind, step_ms, run) in steps.items():
+        shape = InputShape(f"phase_e_{name}", S, B, kind)
+        reset_k4(K)
+        with torch.no_grad() if kind == "prefill" else \
+                contextlib.nullcontext():
+            on_card = compat.cost_analysis(run)
+        torch.cuda.synchronize()
+        free_card(torch)
+        launched = K.launches
+        on_meta, _, trace_s = dryrun.trace_step(
+            cfg, shape, mesh, B, tc=handoff["train_config"])
+        combo = cost_model.Combo(cfg, shape)
+        combo.D, combo.B_loc, combo.M, combo.mb = 1, B, Mb, B // Mb
+        combo.S, combo.Tp, combo.ticks = cfg.pipeline_stages, \
+            cfg.tensor_parallel, Mb
+        combo.data_sharded = True
+        rl = cost_model.roofline(combo)
+        analytic = rl["flops"]["total"]
+        per_device = on_card["flops"] / folded
+        # one card does the work of all the folded devices
+        terms = {k: v * folded for k, v in rl["terms"].items()}
+        step_s = step_ms / 1e3
+        mf = analysis.model_flops(cfg, shape)
+        bound_s = max(terms["compute_s"], terms["memory_s"])
+        out[name] = {
+            "B": B, "S": S, "M": Mb, "step_ms": step_ms,
+            "counted_flops": on_card["flops"],
+            "counted_flops_aten": on_card["flops_aten"],
+            "counted_flops_k4": on_card["flops_kernels"]["flash_attention"],
+            "k4_launches": launched,
+            "meta_flops": on_meta["flops"], "meta_trace_s": trace_s,
+            "analytic_flops_per_device": analytic,
+            "counted_over_analytic": per_device / analytic,
+            "model_flops": mf, "compute_s": terms["compute_s"],
+            "memory_s": terms["memory_s"], "dominant": rl["dominant"],
+            "mfu": mf / (step_s * analysis.PEAK_FLOPS),
+            "counted_share_of_peak": on_card["flops"]
+            / (step_s * analysis.PEAK_FLOPS),
+            "roofline_bound_over_step": bound_s / step_s}
+        log(f"D {name}: counted on the card {on_card['flops']:.6e} FLOPs "
+            f"(K4 as its plain version: "
+            f"{on_card['flops_kernels']['flash_attention']:.6e}, "
+            f"{launched} launches), traced on meta {on_meta['flops']:.6e} "
+            f"in {trace_s:.1f}s; per device {per_device:.6e} against the "
+            f"cost model's {analytic:.6e} (x{per_device / analytic:.4f}); "
+            f"mfu {out[name]['mfu']:.4f}")
+        check(launched > 0 and on_card["flops_kernels"]["flash_attention"]
+              > 0, f"D {name}: no K4 launch was counted")
+        check(on_card["flops"] == on_meta["flops"],
+              f"D {name}: the card's count {on_card['flops']} differs from "
+              f"the meta trace's {on_meta['flops']}")
+        check(abs(per_device / analytic - 1) < COST_MODEL_TOL,
+              f"D {name}: counted {per_device} per device, the cost model "
+              f"{analytic} (tolerance {COST_MODEL_TOL})")
+    del steps
+    handoff.clear()
+    free_card(torch)
+
+    import tempfile
+    reports = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        for arch, shape_id, extra in (
+                ("qwen2-1.5b", "train_4k", []),
+                ("zamba2-7b", "prefill_32k",
+                 ["--set", "use_flash_attention=1"])):
+            run_entry_point(["repro_torch.launch.dryrun", "--arch", arch,
+                             "--shape", shape_id, "--out", d, *extra],
+                            "D (iii)", timeout=900)
+            path = os.path.join(d, f"{arch}_{shape_id}_16x16.json")
+            with open(path) as f:
+                rep = json.load(f)
+            missing = [k for k in DRYRUN_KEYS if k not in rep]
+            ratio = rep["traced_flops_per_device"] / \
+                rep["flops_per_device_ticks_m"]["total"]
+            log(f"D (iii) {arch} {shape_id}: trace {rep['trace_s']}s, "
+                f"arguments {rep['bytes_per_device']['arguments']:,} B a "
+                f"device, traced {rep['traced_flops_per_device']:.6e} "
+                f"FLOPs a device (x{ratio:.4f} the analytic at ticks = M), "
+                f"roofline {rep['roofline']}, dominant {rep['dominant']}")
+            check(not missing, f"D (iii) {arch}: report lacks {missing}")
+            check(rep["bytes_per_device"]["arguments"] > 0,
+                  f"D (iii) {arch}: no argument bytes")
+            check(abs(ratio - 1) < COST_MODEL_TOL,
+                  f"D (iii) {arch}: traced x{ratio} the analytic count")
+            reports[f"{arch} {shape_id}"] = {
+                "trace_s": rep["trace_s"],
+                "arguments_bytes_per_device":
+                    rep["bytes_per_device"]["arguments"],
+                "traced_flops_per_device": rep["traced_flops_per_device"],
+                "traced_over_analytic": ratio, "roofline": rep["roofline"],
+                "dominant": rep["dominant"]}
+    out["dryrun"] = reports
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase D took {out['wall_s']:.1f}s")
+    print(json.dumps({"roofline": out}), flush=True)
+    return out
+
+
 def main():
     t_smoke = time.perf_counter()
     import torch
@@ -3339,7 +3499,13 @@ def main():
     free_card(torch)
 
     # ---- phase E: the pipeline engine (train, prefill, serve, re-pack) ------
-    e_run = engine_phase(torch, fops)
+    handoff = {}
+    e_run = engine_phase(torch, fops, handoff)
+    free_card(torch)
+
+    # ---- phase D: the launch tooling (FLOP counts, roofline, dry runs) ------
+    launch_tooling_phase(torch, fops, handoff, e_run, card)
+    del handoff
     free_card(torch)
 
     # ---- phase 4: K1 at the run's slice sizes, then timings -----------------

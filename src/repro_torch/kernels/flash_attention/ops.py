@@ -6,8 +6,9 @@ function whose backward recomputes the plain version, as the JAX package's
 custom VJP does with ``jax.vjp``).
 
 ``flash_attention_kernel`` launches a CUDA kernel for tensors on a CUDA
-device, and runs the plain version of ``ref.py`` for tensors on the CPU.
-Two kernels, chosen by dtype alone (``launch_plan``):
+device, and runs the plain version of ``ref.py`` for tensors on the CPU
+and on the meta device (where it gives shapes only: meta computes
+nothing). Two kernels, chosen by dtype alone (``launch_plan``):
 
 - route 1, bf16 q over bf16 k and v (the serving path's dtype):
   ``csrc/flash_attention_sm90.cu``, wgmma on the tensor cores fed by TMA;
@@ -19,7 +20,9 @@ Each pair has exactly one kernel and there is no other fallback: a CUDA
 tensor goes through its route's kernel or the call raises. Both kernels
 load through TMA tensor maps over the caller's strides; the wrapper copies
 only a tensor whose base or strides TMA cannot take. Nothing is padded:
-both kernels mask the true sequence edges.
+both kernels mask the true sequence edges. While a FLOP count is open
+(``compat.cost_analysis``), each launch adds its plain version's FLOPs to
+``flash_attention_kernel.flops`` (``kernels/flops.py``).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import threading
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import flops as _flops
 from repro_torch.kernels.flash_attention.ref import attention_reference
 from repro_torch.kernels.tma import ready as _tma_ready
 from repro_torch.kernels.tma import strides as _strides
@@ -97,9 +101,9 @@ def _check(q, k, v):
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {dh} is not one of "
                          f"{HEAD_DIMS}")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not "
-                         f"{q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention runs on CUDA, CPU or meta "
+                         f"tensors, not {q.device}")
 
 
 def flash_attention_kernel(q, k, v, q_offset=None, *, causal: bool = True,
@@ -108,14 +112,15 @@ def flash_attention_kernel(q, k, v, q_offset=None, *, causal: bool = True,
     in q's dtype. ``q_offset`` (an int or a one-element int tensor): the
     global position of q row 0, for chunked prefill against a longer kv
     cache. Counts each kernel launch in ``flash_attention_kernel.launches``
-    and in ``launches_route1`` or ``launches_route2`` beside it.
+    and in ``launches_route1`` or ``launches_route2`` beside it, and while
+    a count is open its plain version's FLOPs in ``.flops``.
     """
     _check(q, k, v)
     B, H, Sq, dh = q.shape
     _, Hkv, Skv, _ = k.shape
     off = 0 if q_offset is None else int(q_offset)
     scale = scale if scale is not None else dh ** -0.5
-    if q.device.type == "cpu":
+    if q.device.type != "cuda":         # the CPU, or meta (shapes only)
         return attention_reference(q, k, v, causal=causal, window=window,
                                    scale=scale, q_offset=off)
     out = torch.empty((B, H, Sq, dh), dtype=q.dtype, device=q.device)
@@ -142,6 +147,10 @@ def flash_attention_kernel(q, k, v, q_offset=None, *, causal: bool = True,
             flash_attention_kernel.launches_route1 += 1
         else:
             flash_attention_kernel.launches_route2 += 1
+    if _flops.open_counts:
+        _flops.add(flash_attention_kernel, _flops.plain_flops(
+            attention_reference, (q, k, v), causal=bool(causal),
+            window=int(window), scale=float(scale), q_offset=off))
     return out
 
 
@@ -149,6 +158,8 @@ def flash_attention_kernel(q, k, v, q_offset=None, *, causal: bool = True,
 flash_attention_kernel.launches = 0
 flash_attention_kernel.launches_route1 = 0
 flash_attention_kernel.launches_route2 = 0
+# the plain version's FLOPs of the launches made while a count was open
+flash_attention_kernel.flops = 0
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -8,10 +8,13 @@ JAX package's custom VJP does with ``jax.vjp``).
 ``ssd_scan_kernel`` launches the CUDA kernels of ``csrc/ssd_scan.cu`` for
 tensors on a CUDA device (three passes: chunk states, the state passed
 across chunks, chunk outputs; ``launch_plan`` says what each is given),
-and runs the plain version of ``ref.py`` for tensors on the CPU. There is
-no other fallback: a CUDA tensor goes through the kernels or the call
-raises. Nothing is padded on the card: the kernels read positions past S
-as dt = 0 (exact, see ``ref.ssd_scan_reference``).
+and runs the plain version of ``ref.py`` for tensors on the CPU and on
+the meta device (where it gives shapes only: meta computes nothing).
+There is no other fallback: a CUDA tensor goes through the kernels or the
+call raises. Nothing is padded on the card: the kernels read positions
+past S as dt = 0 (exact, see ``ref.ssd_scan_reference``). While a FLOP
+count is open (``compat.cost_analysis``), each launch adds its plain
+version's FLOPs to ``ssd_scan_kernel.flops`` (``kernels/flops.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build, tma
+from repro_torch.kernels import flops as _flops
 from repro_torch.kernels.ssm_scan.ref import ssd_scan_reference
 
 CHUNK = 128                 # the kernel's chunk length
@@ -115,8 +119,8 @@ def _check(xh, dt, A, Bm, Cm, D, h0):
             f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm {tuple(Bm.shape)}, "
             f"Cm {tuple(Cm.shape)}, D {tuple(D.shape)}"
             + ("" if h0 is None else f", h0 {tuple(h0.shape)}"))
-    if xh.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not "
+    if xh.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"ssd_scan runs on CUDA, CPU or meta tensors, not "
                          f"{xh.device}")
 
 
@@ -144,10 +148,11 @@ def ssd_scan_kernel(xh, dt, A, Bm, Cm, D, chunk: int = CHUNK, h0=None,
     [B, S, H, P] in xh's dtype or, with ``h0`` or ``return_state``,
     (y, h_final [B, H, P, N] f32). Any S: the ragged tail is masked.
     Counts each call in ``ssd_scan_kernel.launches`` (one a call: its
-    three passes feed one another)."""
+    three passes feed one another), and while a count is open its plain
+    version's FLOPs in ``.flops``."""
     _check(xh, dt, A, Bm, Cm, D, h0)
     want_state = h0 is not None or return_state
-    if xh.device.type == "cpu":
+    if xh.device.type != "cuda":        # the CPU, or meta (shapes only)
         return ssd_scan_reference(xh, dt, A, Bm, Cm, D, chunk=chunk, h0=h0,
                                   return_state=return_state)
     _check_cuda(xh, dt, Bm, Cm, chunk)
@@ -189,10 +194,16 @@ def ssd_scan_kernel(xh, dt, A, Bm, Cm, D, chunk: int = CHUNK, h0=None,
         raise RuntimeError(f"ssd_scan kernel launch failed: error {rc}")
     with _count_lock:
         ssd_scan_kernel.launches += 1
+    if _flops.open_counts:
+        _flops.add(ssd_scan_kernel, _flops.plain_flops(
+            ssd_scan_reference, (xh, dt, A, Bm, Cm, D, h0), chunk=chunk,
+            return_state=bool(return_state)))
     return (y, hfin) if want_state else y
 
 
 ssd_scan_kernel.launches = 0
+# the plain version's FLOPs of the launches made while a count was open
+ssd_scan_kernel.flops = 0
 
 
 class _SSDScan(torch.autograd.Function):

@@ -53,12 +53,11 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype=f32):
     dev = gen.device
     # in_proj emits [z | x | B | C | dt]
     in_dim = 2 * d_inner + 2 * N + H
-    u = torch.rand((H,), generator=gen, dtype=dtype, device=dev)
+    u = modules.rand(gen, (H,), dtype)
     lo, hi = math.log(0.001), math.log(0.1)
     return {
         "in_proj": modules.dense_init(gen, d, in_dim, dtype=dtype),
-        "conv_w": torch.randn((cfg.ssm_conv_width, conv_dim), generator=gen,
-                              dtype=dtype, device=dev)
+        "conv_w": modules.randn(gen, (cfg.ssm_conv_width, conv_dim), dtype)
                   * (1.0 / cfg.ssm_conv_width),
         "conv_b": torch.zeros((conv_dim,), dtype=dtype, device=dev),
         "A_log": torch.log(torch.linspace(1.0, 16.0, H, dtype=dtype,
@@ -94,9 +93,10 @@ def ssd_step(h, xt, dt, A, Bt, Ct, D):
 
 
 def _chunk(L: int, device, chunk: int = DEFAULT_CHUNK) -> int:
-    """The scan's chunk length: K5's on CUDA; the JAX mixer's on the CPU
-    (halved until it divides L)."""
-    if device.type == "cuda":
+    """The scan's chunk length: K5's on CUDA, and on meta, which stands
+    for the card in a FLOP count (``launch/dryrun.py``); the JAX mixer's
+    on the CPU (halved until it divides L)."""
+    if device.type in ("cuda", "meta"):
         return chunk
     ck = min(chunk, L)
     while L % ck:

@@ -86,10 +86,13 @@ def init_params(seed_or_generator, cfg: ModelConfig, dtype=torch.float32,
     """Random params from ``seed_or_generator`` (an int seed, or a
     ``torch.Generator`` on ``device``), deterministic in the seed on a
     given device type. ``device`` defaults to CUDA and raises without it
-    (pass ``device="cpu"`` to build on the CPU). The draws cannot be the
-    JAX package's: to run both on identical weights, use
+    (pass ``device="cpu"`` to build on the CPU). ``device="meta"`` builds
+    the tree's shapes and dtypes only: no draw, no memory. The draws
+    cannot be the JAX package's: to run both on identical weights, use
     ``params_from_numpy``."""
-    if isinstance(seed_or_generator, torch.Generator):
+    if device is not None and resolve_device(device).type == "meta":
+        gen = modules.ShapeOnly()
+    elif isinstance(seed_or_generator, torch.Generator):
         gen = seed_or_generator
         dev = gen.device if device is None else resolve_device(device)
         if gen.device.type != dev.type:

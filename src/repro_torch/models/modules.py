@@ -6,7 +6,9 @@ params`` and a pure apply function with the JAX package's layouts (dense
 weights ``[in, out]``, activations ``[..., seq, heads, head_dim]``). The
 inits draw from an explicit ``torch.Generator`` on the device the params
 live on; they cannot reproduce ``jax.random``, so parity tests carry the
-JAX package's weights across (``models/model.params_from_numpy``).
+JAX package's weights across (``models/model.params_from_numpy``). The
+meta device has no generator: there the inits take ``ShapeOnly`` and
+build params of the right shapes and dtypes that hold no values.
 """
 from __future__ import annotations
 
@@ -24,12 +26,32 @@ def dtype_of(name: str) -> torch.dtype:
 
 # ---------------------------------------------------------------- init --
 
+class ShapeOnly:
+    """Takes a generator's place on the meta device: ``randn`` and
+    ``rand`` give empty meta tensors for it, so an init builds its param
+    tree without a draw and without memory (``launch/specs.params_sds``)."""
+    device = torch.device("meta")
+
+
+def randn(gen, shape, dtype=torch.float32):
+    """Standard normal draws from ``gen`` on its device (none on meta)."""
+    if isinstance(gen, ShapeOnly):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
+    return torch.randn(shape, generator=gen, dtype=dtype, device=gen.device)
+
+
+def rand(gen, shape, dtype=torch.float32):
+    """Uniform [0, 1) draws from ``gen`` on its device (none on meta)."""
+    if isinstance(gen, ShapeOnly):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
+    return torch.rand(shape, generator=gen, dtype=dtype, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
                bias: bool = False, scale: float | None = None,
                dtype=torch.float32):
     scale = float(1.0 / np.sqrt(in_dim)) if scale is None else scale
-    p = {"w": torch.randn((in_dim, out_dim), generator=gen, dtype=dtype,
-                          device=gen.device) * scale}
+    p = {"w": randn(gen, (in_dim, out_dim), dtype) * scale}
     if bias:
         p["b"] = torch.zeros((out_dim,), dtype=dtype, device=gen.device)
     return p
@@ -45,8 +67,7 @@ def norm_init(dim: int, *, bias: bool = False, dtype=torch.float32,
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                dtype=torch.float32):
-    return {"table": torch.randn((vocab, dim), generator=gen, dtype=dtype,
-                                 device=gen.device) * 0.02}
+    return {"table": randn(gen, (vocab, dim), dtype) * 0.02}
 
 
 # --------------------------------------------------------------- apply --

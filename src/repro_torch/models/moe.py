@@ -35,7 +35,7 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+        return modules.randn(gen, shape, dtype)
 
     return {
         "router": modules.dense_init(gen, d, E, dtype=dtype),

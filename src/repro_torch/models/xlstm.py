@@ -10,7 +10,8 @@ only, so its gathers are identities.
 
 The sLSTM scan (``lax.scan`` in the JAX package) is a Python loop over
 time here, one cell step after the other in the same order of
-operations. No Pallas kernel exists for either layer in the JAX package.
+operations (on the meta device, all steps at once: ``_slstm_scan_meta``).
+No Pallas kernel exists for either layer in the JAX package.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig, dtype=f32):
     si = 1.0 / math.sqrt(di)
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+        return modules.randn(gen, shape, dtype)
 
     return {
         "up_x": modules.dense_init(gen, d, di, dtype=dtype),
@@ -266,7 +267,7 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig, dtype=f32):
     dev = gen.device
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+        return modules.randn(gen, shape, dtype)
 
     return {
         "w": randn(d, H, 4 * dh) * (1.0 / math.sqrt(d)),
@@ -316,11 +317,37 @@ def _slstm_wx(p, x):
 def _slstm_scan(p, wx, state):
     """The cell over time, one step after the other. Returns (final
     state, hs [B, S, Hl, dh])."""
+    if wx.is_meta:
+        return _slstm_scan_meta(p, wx, state)
     hs = []
     for t in range(wx.shape[1]):
         state = _slstm_cell(p, wx[:, t], state)
         hs.append(state[2])
     return state, torch.stack(hs, dim=1)
+
+
+def _slstm_scan_meta(p, wx, state):
+    """``_slstm_scan``'s shapes, and the products a FLOP count sees, on
+    the meta device, which computes nothing (``launch/dryrun.py``): all
+    steps at once, where the loop would spend ~15 meta operations of host
+    time a step (hours for a 32k prefill). Step 0's recurrent product
+    reads the state's h; the later steps' read a stand-in h that depends
+    on wx, the state and r as the loop's does, so ``FlopCounterMode``
+    counts the loop's products, forward and backward, exactly."""
+    c, n, h, m = state
+    r = p["r"].to(f32)
+    rec0 = torch.einsum("bhd,hdk->bhk", h, r)[:, None]
+    z, _, _, o = torch.chunk(wx[:, :-1] + rec0, 4, dim=-1)
+    h_prev = torch.sigmoid(o) * torch.tanh(z)
+    rec = torch.cat([rec0, torch.einsum("bshd,hdk->bshk", h_prev, r)],
+                    dim=1)
+    z, i, f, o = torch.chunk(wx + rec, 4, dim=-1)
+    logf = F.logsigmoid(f + p["f_bias"].to(f32))
+    m_all = torch.maximum(logf + m[:, None], i)
+    c_all = torch.exp(logf - m_all) * c[:, None] + torch.tanh(z)
+    n_all = torch.exp(i - m_all) + n[:, None]
+    hs = torch.sigmoid(o) * c_all / n_all
+    return (c_all[:, -1], n_all[:, -1], hs[:, -1], m_all[:, -1]), hs
 
 
 def _slstm_out(p, hs, dtype, tp: TP):

@@ -457,7 +457,9 @@ def make_train_step(mesh, cfg: ModelConfig, tc: TrainConfig, *,
                                          state["opt_state"], **kw)
         del grads
         step = state["step"] + 1
-        if agg_every and int(step) % agg_every == 0:
+        # a meta step has no value (launch/dryrun.py): its blend, work a
+        # FLOP count does not see, is left out there
+        if agg_every and not step.is_meta and int(step) % agg_every == 0:
             new_params = dict(new_params)
             for key in ("blocks", "dec_blocks"):
                 if key in new_params:
@@ -554,9 +556,12 @@ def make_serve_step(mesh, cfg: ModelConfig, *, window: int = 0,
         if audio:
             pos_table = modules.sinusoidal_positions(
                 max(cfg.max_target_positions, 2), cfg.d_model, x.device)
-            row = pos_table[torch.clamp(pos_t, max=pos_table.shape[0] - 1)
-                            .long()]
-            x = x + row[None, None].to(dtype)
+            # index_select, not [pos]: a 0-d index tensor is read on the
+            # host (a sync on CUDA, and no value at all on meta)
+            row = pos_table.index_select(
+                0, torch.clamp(pos_t, max=pos_table.shape[0] - 1)
+                .long().reshape(1))
+            x = x + row[None].to(dtype)
         pm = model_lib.pad_mask(
             cfg, model_lib.decoder_assignment(cfg) if audio else None,
             layout, device=x.device)

@@ -553,8 +553,17 @@ class SocketTransport(TransportBase):
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             t = threading.Thread(target=self._read_loop, args=(conn,),
                                  daemon=True, name="net-read")
+            # recorded BEFORE its reader starts, under the lock close()
+            # reads the list with: a connection that has delivered a frame
+            # is one close() shuts down. Recorded after, it could miss
+            # close(), stay open, and swallow the peer's next frame (its
+            # sender sees no EOF, so no reason to redial a relaunch)
+            with self._lock:
+                if self.closed:
+                    conn.close()
+                    return
+                self._readers.append((t, conn))
             t.start()
-            self._readers.append((t, conn))
 
     def _read_loop(self, conn: socket.socket):
         """Reader for one inbound connection: buffered recv (the sender
@@ -591,7 +600,9 @@ class SocketTransport(TransportBase):
         elasticity: it frees the listen port AND sends peers the EOF their
         per-incarnation reconnect check keys on — the same signals a
         SIGKILLed process's kernel would emit."""
-        self.closed = True
+        with self._lock:
+            self.closed = True
+            readers = list(self._readers)
         try:
             # shutdown BEFORE close: close() alone does not wake a thread
             # blocked in accept(), and the in-flight syscall would keep
@@ -604,7 +615,7 @@ class SocketTransport(TransportBase):
             self._listener.close()
         except OSError:
             pass
-        for _, conn in self._readers:
+        for _, conn in readers:
             try:
                 conn.shutdown(socket.SHUT_RDWR)
             except OSError:

@@ -159,8 +159,9 @@ def test_kernel_wrapper_raises_instead_of_falling_back():
     _, (q, k, v) = _qkv(1, 2, 1, 8, 8, 32, 0)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_kernel(*(torch.zeros(1, 2, 8, 48),) * 3)
-    with pytest.raises(ValueError):                     # meta device
-        flash_attention_kernel(q.to("meta"), k.to("meta"), v.to("meta"))
+    # meta: the plain version's shapes (meta computes nothing), no launch
+    out = flash_attention_kernel(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
     with pytest.raises(ValueError):                     # mixed devices
         flash_attention_kernel(q, k.to("meta"), v)
     with pytest.raises(ValueError):                     # k and v differ

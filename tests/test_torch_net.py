@@ -13,6 +13,7 @@ use a detect timeout well above any heartbeat gap a loaded machine gives.
 """
 import concurrent.futures
 import multiprocessing as mp
+import threading
 import time
 
 import numpy as np
@@ -198,6 +199,45 @@ def test_sender_reconnects_to_relaunched_listener():
         second = SocketTransport(addr_of, local=(1,))   # same port
         a.send(0, 1, "fetch_res", {"req_id": 1, "layers": {}})
         m = second.recv(1, timeout=10.0)
+        assert m is not None and m.kind == "fetch_res"
+    finally:
+        _close(a, first, second)
+
+
+class _LateAppend(list):
+    """A transport's list of accepted connections whose ``append`` waits
+    (for ``go``, at most 2 s): it holds the accept thread between taking
+    a connection and recording it, the window a loaded machine opens."""
+
+    def __init__(self):
+        super().__init__()
+        self.go = threading.Event()
+
+    def append(self, item):
+        self.go.wait(2.0)
+        super().append(item)
+
+
+def test_close_shuts_a_connection_recorded_late():
+    """The race behind the intermittent failure above, made to happen:
+    the listener's reader delivers the first frame before the accept
+    thread records the connection, and the listener closes in between.
+    Its close must still shut that connection down, or the sender sees
+    no EOF and writes the next frame into the dead incarnation instead
+    of redialling the relaunched one."""
+    p0, p1 = net.free_ports(HOST, 2)
+    addr_of = {0: (HOST, p0), 1: (HOST, p1)}
+    a = SocketTransport(addr_of, local=(0,))
+    first, second = SocketTransport(addr_of, local=(1,)), None
+    first._readers = gate = _LateAppend()
+    try:
+        assert a.send(0, 1, "act", (1, 0, np.zeros(4, np.float32)))
+        assert first.recv(1, timeout=10.0) is not None
+        first.close()                        # the old incarnation dies
+        gate.go.set()
+        second = SocketTransport(addr_of, local=(1,))   # same port
+        a.send(0, 1, "fetch_res", {"req_id": 1, "layers": {}})
+        m = second.recv(1, timeout=5.0)
         assert m is not None and m.kind == "fetch_res"
     finally:
         _close(a, first, second)

@@ -196,8 +196,9 @@ def test_wrapper_raises_on_bad_inputs_and_counts_no_cpu_launch():
         ssd_scan_kernel(xh.half(), dt, A, Bm, Cm, D)
     with pytest.raises(ValueError):                     # mixed devices
         ssd_scan_kernel(xh, dt.to("meta"), A, Bm, Cm, D)
-    with pytest.raises(ValueError):                     # meta device
-        ssd_scan_kernel(*(t.to("meta") for t in (xh, dt, A, Bm, Cm, D)))
+    # meta: the plain version's shapes (meta computes nothing), no launch
+    ym = ssd_scan_kernel(*(t.to("meta") for t in (xh, dt, A, Bm, Cm, D)))
+    assert ym.is_meta and ym.shape == xh.shape and ym.dtype == xh.dtype
     y = ssd_scan_kernel(xh, dt, A, Bm, Cm, D)           # CPU: plain version
     y2, h = ssd_scan_kernel(xh, dt, A, Bm, Cm, D, return_state=True)
     assert torch.equal(y, y2) and tuple(h.shape) == (1, 2, 32, 16)

@@ -7,6 +7,7 @@
     python3 tools/kernel_experiments.py quant [--no-cuts] [--baseline FILE]
     python3 tools/kernel_experiments.py families
     python3 tools/kernel_experiments.py engine
+    python3 tools/kernel_experiments.py k4host --baseline FILE
 
 ``k5``: where the SSD scan's (K5) time goes. Builds variants of
 ``csrc/ssd_scan.cu`` into ``build/experiments/``, each with pieces of
@@ -86,6 +87,16 @@ once with the blend, each under ``torch.profiler`` as ``families``
 reports a forward; then the step's pieces timed apart on the host clock
 (synchronised): the loss with its backward, the Adam update, the blend;
 then one pipelined bf16 prefill at B=4, S=2,048, 4 microbatches.
+
+``k4host``: the host time of one call of K4's wrapper
+(``flash_attention_kernel``, 1,000 calls with no sync, as
+``chip_smoke.host_ms`` takes it) at zamba2-7b's B=1, S=32 route-2 shape
+(f32, H=Hkv=32, dh=112, causal), for this tree's wrapper and for a
+baseline copy of ``kernels/flash_attention/ops.py`` (``FILE``, for
+example the parent commit's), loaded beside it, in turns (baseline,
+tree, tree, baseline, three times); then this tree's with a FLOP count
+open (``kernels/flops.counting``: each launch adds its plain version's
+count, cached by shape).
 
 Each result is one JSON line; the card's name and power limit come last.
 """
@@ -825,6 +836,43 @@ def engine():
          S=c.PREFILL_S, microbatches=Mb, **summary)
 
 
+def k4host(baseline):
+    import importlib.util
+    import statistics
+    import numpy as np
+    import torch
+    import chip_smoke as c
+    from repro_torch.kernels import flops
+    from repro_torch.kernels.flash_attention import ops
+    spec = importlib.util.spec_from_file_location("k4_baseline_ops",
+                                                  baseline)
+    base = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(base)
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.as_tensor(rng.standard_normal((1, 32, 32, 112)).astype(
+        np.float32), device="cuda") for _ in range(3))
+    want = ops.attention_reference(q, k, v, causal=True)
+    for mod in (base, ops):
+        err = (mod.flash_attention_kernel(q, k, v, causal=True) - want) \
+            .abs().max().item()
+        if err > c.FLASH_TOL["float32"]:
+            raise SystemExit(f"{mod.__name__}: off by {err}")
+    times = {"baseline": [], "tree": []}
+    for _ in range(3):
+        for name in ("baseline", "tree", "tree", "baseline"):
+            mod = base if name == "baseline" else ops
+            times[name].append(c.host_ms(lambda: mod.flash_attention_kernel(
+                q, k, v, causal=True), torch))
+    with flops.counting():
+        counting = [c.host_ms(lambda: ops.flash_attention_kernel(
+            q, k, v, causal=True), torch) for _ in range(3)]
+    emit(what="k4_wrapper_host_ms", shape="B=1 H=Hkv=32 S=32 dh=112 causal "
+         "f32 (route 2)", baseline_file=baseline,
+         **{f"{n}_ms": t for n, t in times.items()},
+         **{f"{n}_median_ms": statistics.median(t) for n, t in times.items()},
+         counting_ms=counting, counting_median_ms=statistics.median(counting))
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="what", required=True)
@@ -834,6 +882,8 @@ def main():
     sub.add_parser("k4r2")
     sub.add_parser("families")
     sub.add_parser("engine")
+    q = sub.add_parser("k4host")
+    q.add_argument("--baseline", required=True)
     q = sub.add_parser("quant")
     q.add_argument("--no-cuts", action="store_true")
     q.add_argument("--baseline")
@@ -853,6 +903,8 @@ def main():
         families()
     elif args.what == "engine":
         engine()
+    elif args.what == "k4host":
+        k4host(args.baseline)
     else:
         quant(not args.no_cuts, args.baseline)
     print(c.card_line(), flush=True)
