@@ -205,6 +205,35 @@ Phases, each fatal on failure (exit code 1, no result line):
      a report with the JAX report's keys, a per-device argument byte
      count, and the traced FLOPs per device within 35% of the analytic
      count at ticks = M;
+  R. the pipeline engine over real ranks (``pipeline/ranks.RankPool``:
+     one spawned process a mesh position, a ``FileStore`` rendezvous,
+     bounded waits) at qwen2-1.5b's full width: (i) one rank over NCCL,
+     2 bf16 Adam steps (B=4, S=1,024, M=4, remat, stash 2, blend every 2)
+     of the rank engine, then of the folded engine on the same config,
+     draw and batch in that process (the parent holds no model): the
+     same losses and every state leaf equal bit for bit, 224 K4 launches
+     a step on route 1; (ii) two ranks sharing the card over gloo (NCCL
+     puts no two ranks on one GPU), on (1, 1, 2) (a real tensor axis: K4
+     at H=6, Hkv=1) and (1, 2, 1) (the stage hand-off between
+     processes): the bf16 pipelined prefill (B=4, S=2,048, M=4) against
+     the folded engine within phase E's 2e-2 rel (L2), the train
+     batch's f32 loss and every f32 gradient leaf (each rank's shards
+     handed over the pool's pipe and put together) within phase E (i)'s
+     1e-4 (abs; rel L2), its bf16 loss within 2e-2 and every bf16
+     gradient leaf no farther from the f32 one than twice the folded
+     engine's bf16 leaf, 3 timed bf16 Adam steps (stash 2, the blend
+     at step 2) whose losses are within 2e-2 of the folded engine's and
+     whose final state, put together from the ranks' shards, is the
+     folded engine's (params and stash element by element within the
+     drift two Adam runs allow, ``ADAM_STEP_MAX``; the moments' largest
+     error, over the largest value, within twice the bf16 gradients'
+     (v four times); the counts equal), every rank's K4
+     launches exact (n_local x M prefill, 2 n_local x M a step, route 1
+     in bf16, route 2 in f32), the
+     send/recv bytes staged through the host printed (none on (1, 1, 2)),
+     each rank's peak; (iii) ``torchrun --nproc-per-node 1 -m
+     repro_torch.launch.train --debug-mesh 1,1,1 --steps 20`` (exit 0,
+     an NCCL rank, "improved"); a ``{"slice_ranks": ...}`` line;
   4. K1 again at every stage-slice size the run used, then each kernel's
      time beside its bound, its plain version's and, where one PyTorch
      call computes the same function, that call's (K1:
@@ -1046,8 +1075,9 @@ def flash_shapes():
     dense slice's shapes at qwen2-1.5b's heads, the hybrid slice's at
     zamba2-7b's (H = Hkv = 32, dh = 112), olmoe-1b-7b's prefill (H = Hkv =
     16, dh = 128) and whisper-base's encoder (H = Hkv = 8, dh = 64, 1,500
-    frames, non-causal: a ragged key count without a causal mask), then
-    the smaller head dims."""
+    frames, non-causal: a ragged key count without a causal mask), the
+    engine's one-row microbatches (phase E's, and phase R's on a tensor
+    rank: H = 6, Hkv = 1), then the smaller head dims."""
     H, Hkv, dh = 12, 2, 128
     big = [(4, H, Hkv, 2048, 2048, dh, True, 0, 0),
            (4, H, Hkv, 1000, 1000, dh, True, 0, 0),
@@ -1055,7 +1085,8 @@ def flash_shapes():
            (4, H, Hkv, 1000, 1000, dh, False, 0, 0),
            (4, H, Hkv, 512, 2048, dh, True, 0, 1536),
            (4, 32, 32, 2048, 2048, 112, True, 0, 0),   # zamba2-7b's
-           OLMOE_PREFILL, WHISPER_ENCODER, *ENGINE_MICROBATCHES]
+           OLMOE_PREFILL, WHISPER_ENCODER, *ENGINE_MICROBATCHES,
+           RANK_TRAIN_MB, RANK_PREFILL_MB]
     small = [(2, 4, 2, 200, 200, d, True, 64, 0) for d in (32, 64)]
     small += [(2, 4, 2, 130, 130, d, False, 0, 0) for d in (32, 64)]
     return big, small
@@ -1075,6 +1106,11 @@ ENGINE_PREFILL_MB = (1, 12, 2, 2048, 2048, 128, True, 0, 0)
 WHISPER_ENCODER_MB = (1, 8, 8, 1500, 1500, 64, False, 0, 0)
 ENGINE_MICROBATCHES = (ENGINE_TRAIN_MB, ENGINE_PARITY_MB, ENGINE_PREFILL_MB,
                        WHISPER_ENCODER_MB)
+# phase R's microbatches on a tensor rank of (1, 1, 2): qwen2-1.5b's 12
+# heads and 2 kv heads split two ways, a GQA group of 6 (H=6, Hkv=1), at
+# the training length and the pipelined prefill's
+RANK_TRAIN_MB = (1, 6, 1, 1024, 1024, 128, True, 0, 0)
+RANK_PREFILL_MB = (1, 6, 1, 2048, 2048, 128, True, 0, 0)
 
 
 def route2_shapes():
@@ -1147,7 +1183,8 @@ def flash_phase(torch, fops, fref):
     cases = [(sh, t, "contiguous") for sh in big + [ZAMBA2_SHORT]
              for t in served]
     cases += [(sh, t, "contiguous") for sh in small for t in types]
-    cases += [(sh, t, "model") for sh in (big[0], big[5], ENGINE_TRAIN_MB)
+    cases += [(sh, t, "model") for sh in (big[0], big[5], ENGINE_TRAIN_MB,
+                                          RANK_TRAIN_MB)
               for t in ("bf16", "f32")]
     # the q_offset chunk over a slice of the cache: qwen2's 512 rows over
     # 2048 of 2056, zamba2's 32 rows at q_offset 8 over 40 of 48
@@ -2857,8 +2894,8 @@ def checked_blends(found, torch):
     from repro_torch.pipeline import pipeline_step as ps
     blend = ps._stage_window_blend
 
-    def checking(cfg, new_blocks, stash_blocks):
-        out = blend(cfg, new_blocks, stash_blocks)
+    def checking(mesh, cfg, new_blocks, stash_blocks):
+        out = blend(mesh, cfg, new_blocks, stash_blocks)
         S = cfg.pipeline_stages
         last, early, n_leaves = True, True, 0
         for o, n, st in zip(tree.leaves(out), tree.leaves(new_blocks),
@@ -3383,6 +3420,611 @@ def launch_tooling_phase(torch, fops, handoff, e_run, card):
     return out
 
 
+# ------------------------ the engine on ranks (R) --------------------------
+
+RANK_NAMES = ("data", "stage", "tensor")
+RANK_NCCL_STEPS = 2          # (i): steps held bit for bit
+RANK_GLOO_STEPS = 3          # (ii): train steps a mesh (blend at 2; step 3
+                             # runs on the stash step 1's update turned over)
+RANK_GLOO_MESHES = ((1, 1, 2), (1, 2, 1))
+RANK_BF16_REL_L2 = 2e-2      # phase E (iii)'s bf16 limit
+# bf16 gradients: a per-leaf relative norm against the folded engine's
+# does not hold. A k bias shifts every score of a query by the same q.b,
+# which softmax ignores, so its gradient is zero in exact arithmetic and
+# what either engine computes for it is rounding alone. So each leaf of
+# the ranks' bf16 gradient may lie no farther from the folded engine's
+# f32 gradient than RANK_BF16_VS_F32 times the folded engine's own bf16
+# gradient does (two bf16 evaluations of one function, rounded in
+# different orders).
+RANK_BF16_VS_F32 = 2.0
+# The Adam moments: a leaf's largest |error| over the largest |value| of
+# any leaf ("of the largest"), against the same measure of the two engines'
+# bf16 gradients at the first step. m sums the three steps' gradients
+# with positive weights, so it may lie up to RANK_MOMENTS_VS_GRADS times
+# as far; v sums their squares, whose error 2 g dg doubles that.
+RANK_MOMENTS_VS_GRADS = 2.0
+# Adam's step |m_hat| / sqrt(v_hat) is at most 1.001 over three steps at
+# b1 0.9, b2 0.95 (Cauchy-Schwarz over the two weightings), so two runs
+# from one init move an element apart by at most 2.002 lr a step, plus a
+# bf16 spacing (2^-7 of the value) at each rounding: the updates and the
+# blend. The bf16 params and stash are held to that, element by element.
+ADAM_STEP_MAX = 1.001
+RANK_F32_TOL = 1e-4          # phase E (i)'s f32 loss and gradient limits
+RANK_TIMEOUT = 600.0         # seconds a rank call may take
+
+
+def rank_cfg(stages, tensor):
+    """qwen2-1.5b at its published widths, its 28 layers over ``stages``
+    stages, tensor parallel ``tensor``, with K4."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-1.5b")
+    lps = cfg.num_layers // stages
+    return cfg.with_overrides(pipeline_stages=stages, tensor_parallel=tensor,
+                              layers_per_stage=lps,
+                              slot_layout=("dense",) * lps,
+                              use_flash_attention=1)
+
+
+def rank_train_cfg(shape):
+    """Phase R (ii)'s config on a (data, stage, tensor) mesh: the weight
+    stash of depth 2 and the blend every 2 steps, as phase E (ii)."""
+    return rank_cfg(shape[1], shape[2]).with_overrides(stash_depth=2,
+                                                       aggregate_every=2)
+
+
+def rank_train_config():
+    from repro_torch.configs import TrainConfig
+    return TrainConfig(learning_rate=ENGINE_TRAIN_LR, optimizer="adam",
+                       microbatches=ENGINE_TRAIN_M, remat=True,
+                       weight_decay=0.0)
+
+
+def lm_batch(vocab, B, S, seed, torch):
+    """Phase E's ``SyntheticLM`` draw: (tokens, labels) on the card."""
+    import numpy as np
+    from repro_torch.data.synthetic import SyntheticLM
+    x, y = SyntheticLM(vocab_size=vocab, seed=0).sample(
+        np.random.default_rng(seed), B, S)
+    return (torch.as_tensor(x, device="cuda"),
+            torch.as_tensor(y, device="cuda"))
+
+
+def rank_nccl_train(steps):
+    """Phase R (i), on the one rank of an NCCL world: ``steps`` bf16 Adam
+    steps of the rank engine (a ``RankMesh`` of (1, 1, 1)), then of the
+    folded engine on the same config, draw and batch, in this process
+    (the parent holds no model). Returns both runs' losses, step ms and K4
+    counts, and whether every leaf of the two final states is equal bit
+    for bit."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.mesh import make_debug_mesh, make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.pipeline.pipeline_step import make_train_step
+    from repro_torch.pipeline.sharding import shard_params
+    K = fops.flash_attention_kernel
+    cfg = rank_cfg(1, 1).with_overrides(stash_depth=2, aggregate_every=2)
+    x, y = lm_batch(cfg.vocab_size, ENGINE_TRAIN_B, ENGINE_TRAIN_S, 1, torch)
+    out, kept = {}, None
+    for name in ("rank", "folded"):
+        mesh = (make_debug_mesh(1, 1, 1, device="cuda") if name == "rank"
+                else make_local_mesh((1, 1, 1), RANK_NAMES, "cuda"))
+        params = M.init_params(0, cfg, device="cuda")
+        if name == "rank":
+            params = shard_params(params, mesh, cfg)
+        step_fn, _ = make_train_step(mesh, cfg, rank_train_config())
+        state = step_fn.init_state(params)
+        del params
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, k4 = [], [], []
+        for _ in range(steps):
+            reset_k4(K)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, {"tokens": x, "labels": y})
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            k4.append((K.launches, K.launches_route1))
+        out[name] = {"mesh": type(mesh).__name__, "losses": losses,
+                     "step_ms": ms, "k4": k4, "peak_gb":
+                     torch.cuda.max_memory_allocated() / 1e9}
+        leaves = tree.leaves(state)
+        del state, m
+        if kept is None:
+            kept = [t.cpu() for t in leaves]
+        else:
+            out["leaves"] = len(leaves)
+            out["same"] = len(leaves) == len(kept) and all(
+                torch.equal(a, b.cpu()) for a, b in zip(kept, leaves))
+        del leaves
+        free_card(torch)
+    import torch.distributed as dist
+    out["backend"] = dist.get_backend()
+    out["jax"] = "jax" in sys.modules
+    return out
+
+
+_KEPT = {}      # phase R (ii): what a rank keeps for ``rank_vs_folded``
+
+
+def _keep(name, t):
+    """A CPU copy of tree ``t``'s leaves, kept in this rank's process
+    under ``name`` for ``rank_vs_folded``."""
+    from repro_torch import tree
+    _KEPT[name] = [x.detach().cpu() for x in tree.leaves(t)]
+
+
+def rank_gloo_run(shape):
+    """Phase R (ii), on each rank of a gloo world sharing the card: the
+    bf16 pipelined prefill (B=4, S=2,048, M=4, timed after a warm-up),
+    the f32 and the bf16 loss and gradients of phase E's train batch,
+    then ``RANK_GLOO_STEPS`` timed bf16 Adam steps on that batch (stash 2,
+    the blend every 2 steps). This rank's shards of both gradients and of
+    the final state's params, stash and moments are kept in host memory
+    for ``rank_vs_folded``. Returns the logits (rank 0), losses, times, K4 counts
+    by run, the collectives staged through the host by run, the final
+    state's counts and the peak."""
+    import torch
+    from repro_torch import collectives, tree
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.pipeline.pipeline_step import (make_loss_fn,
+                                                    make_prefill_step,
+                                                    make_train_step)
+    from repro_torch.pipeline.sharding import shard_params
+    K = fops.flash_attention_kernel
+    cfg = rank_train_cfg(shape)
+    mesh = make_debug_mesh(*shape, device="cuda")
+    params = shard_params(M.init_params(0, cfg, device="cuda"), mesh, cfg)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rank": mesh.rank, "coords": mesh.coords, "k4": {}, "k4_route1":
+           {}, "host_staged": {}, "backend": mesh.backend}
+
+    def counted(name, fn):
+        reset_k4(K)
+        collectives.reset_host_staged()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        out["k4"][name], out["k4_route1"][name] = (K.launches,
+                                                   K.launches_route1)
+        out["host_staged"][name] = {k: list(v) for k, v in
+                                    collectives.HOST_STAGED.items()}
+        return res
+
+    prompt, _ = lm_batch(cfg.vocab_size, PREFILL_B, PREFILL_S, 3, torch)
+    prefill = make_prefill_step(mesh, cfg, num_microbatches=4)
+    with torch.no_grad():
+        prefill(params, {"tokens": prompt})                   # warm-up
+        logits = counted("prefill", lambda: prefill(params,
+                                                    {"tokens": prompt}))
+    if mesh.rank == 0:
+        out["logits"] = logits.cpu().numpy()
+    del logits
+    x, y = lm_batch(cfg.vocab_size, ENGINE_TRAIN_B, ENGINE_TRAIN_S, 1, torch)
+    vg = make_loss_fn(mesh, cfg.with_overrides(dtype="float32"),
+                      num_microbatches=ENGINE_TRAIN_M,
+                      remat=True).value_and_grad
+    total, metrics, grads = counted("grads_f32", lambda: vg(
+        params, {"tokens": x, "labels": y}))
+    out["loss_f32"] = float(metrics["loss"])
+    _keep("grads_f32", grads)
+    del grads, total, metrics
+    vg = make_loss_fn(mesh, cfg, num_microbatches=ENGINE_TRAIN_M,
+                      remat=True).value_and_grad
+    total, metrics, grads = counted("grads_bf16", lambda: vg(
+        params, {"tokens": x, "labels": y}))
+    out["loss_bf16"] = float(metrics["loss"])
+    _keep("grads_bf16", grads)
+    del grads, total, metrics
+    step_fn, _ = make_train_step(mesh, cfg, rank_train_config())
+    state = step_fn.init_state(params)
+    del params
+    losses = []
+    for i in range(RANK_GLOO_STEPS):
+        state, m = counted(f"step{i}", lambda: step_fn(
+            state, {"tokens": x, "labels": y}))
+        losses.append(float(m["loss"]))
+    out["train_losses"] = losses
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["jax"] = "jax" in sys.modules
+    for name, t in (("params", state["params"]), ("stash", state["stash"]),
+                    ("m", state["opt_state"]["m"]),
+                    ("v", state["opt_state"]["v"])):
+        _keep(name, t)
+    out["counts"] = (int(state["step"]), int(state["opt_state"]["count"]))
+    del state, m
+    free_card(torch)
+    return out
+
+
+def adam_drift(got, want, steps, lr):
+    """Per leaf, the largest |got - want| over the bound that two bf16
+    Adam runs of ``steps`` steps and a blend keep to (``ADAM_STEP_MAX``):
+    at most 1 where the runs differ by rounding alone."""
+    out = []
+    for g, w in zip(got, want):
+        w = w.float()
+        bound = (steps * 2 * ADAM_STEP_MAX * lr + (steps + 1) * 2.0 ** -7
+                 * (w.abs() + steps * ADAM_STEP_MAX * lr))
+        out.append(float(((g.to(w.device).float() - w).abs() / bound)
+                         .max()))
+    return out
+
+
+def _vs_folded(cfg, shape, r, torch):
+    """Rank ``r``'s turn of ``rank_vs_folded``: the folded engine's f32
+    and bf16 gradients and ``RANK_GLOO_STEPS`` train steps from the same
+    draw and batch, in this process, each cut to rank r's shards
+    (``shard_params``) and held against what this rank kept. Per leaf:
+    sums of squares (rel L2), largest |differences| and |values|
+    (of the largest), ``adam_drift``, and whether equal bit for bit."""
+    from repro_torch import tree
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.pipeline.pipeline_step import (make_loss_fn,
+                                                    make_train_step)
+    from repro_torch.pipeline.sharding import shard_params
+    Mb = ENGINE_TRAIN_M
+    local = make_local_mesh(shape, RANK_NAMES, "cuda")
+    params = M.init_params(0, cfg, device="cuda")
+    paths = tree.flatten(params)[1]
+    x, y = lm_batch(cfg.vocab_size, ENGINE_TRAIN_B, ENGINE_TRAIN_S, 1, torch)
+    batch = {"tokens": x, "labels": y}
+
+    def mine(leaves):
+        """Rank r's shards of a whole tree's leaves (``paths`` order)."""
+        return tree.leaves(shard_params(tree.unflatten(paths, leaves),
+                                        local, cfg, rank=r))
+
+    def sq(t):
+        return float(t.double().square().sum())
+
+    out = {}
+    _, metrics, whole = engine_grads(make_loss_fn(
+        local, cfg.with_overrides(dtype="float32"), num_microbatches=Mb,
+        remat=True), params, batch, torch)
+    out["loss_f32"] = float(metrics["loss"].detach())
+    ref = mine(whole)
+    del whole, metrics
+    _, metrics, whole = engine_grads(make_loss_fn(
+        local, cfg, num_microbatches=Mb, remat=True), params, batch, torch)
+    out["loss_bf16"] = float(metrics["loss"].detach())
+    ref16 = mine(whole)
+    del whole, metrics
+    g32, g16 = _KEPT.pop("grads_f32"), _KEPT.pop("grads_bf16")
+    f32, b16 = [], []
+    for a, a16, w, f in zip(g32, g16, ref, ref16):
+        a, a16 = a.cuda(), a16.cuda()
+        f32.append((sq(a - w), sq(w)))
+        b16.append((sq(a16 - w), sq(f - w), sq(a16 - f), sq(f),
+                    float((a16.float() - f.float()).abs().max()),
+                    float(f.abs().max())))
+    out["grads_f32"], out["grads_bf16"] = f32, b16
+    del g32, g16, ref, ref16, a, a16, w, f
+    free_card(torch)
+    step_fn, _ = make_train_step(local, cfg, rank_train_config())
+    state = step_fn.init_state(params)
+    del params
+    losses = []
+    for _ in range(RANK_GLOO_STEPS):
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+    del m
+    out["train_losses"] = losses
+    out["counts"] = (int(state["step"]), int(state["opt_state"]["count"]))
+    for name, t in (("params", state["params"]), ("stash", state["stash"]),
+                    ("m", state["opt_state"]["m"]),
+                    ("v", state["opt_state"]["v"])):
+        want, got = mine(tree.leaves(t)), _KEPT.pop(name)
+        rows = []
+        for g, w in zip(got, want):
+            g = g.cuda()
+            if tuple(g.shape) != tuple(w.shape):
+                rows.append((math.inf, math.inf, 0.0, False, False))
+                continue
+            rows.append((adam_drift([g], [w], RANK_GLOO_STEPS,
+                                    ENGINE_TRAIN_LR)[0],
+                         float((g.float() - w.float()).abs().max()),
+                         float(w.abs().max()), bool(torch.equal(g, w)),
+                         True))
+        out[name] = rows
+        del want, got, g, w
+    del state
+    return out
+
+
+def rank_vs_folded(shape):
+    """Phase R (ii), on each rank after ``rank_gloo_run``: the ranks take
+    turns, one at a time while the others wait at a barrier holding
+    nothing on the card, to run the folded engine in their own process
+    and hold their kept shards against its (``_vs_folded``). No tensor
+    crosses between processes; the parent combines the per-leaf sums."""
+    import torch
+    import torch.distributed as dist
+    cfg = rank_train_cfg(shape)
+    out = None
+    for turn in range(dist.get_world_size()):
+        if dist.get_rank() == turn:
+            t0 = time.perf_counter()
+            out = _vs_folded(cfg, shape, turn, torch)
+            out["turn_s"] = time.perf_counter() - t0
+            free_card(torch)
+        dist.barrier()
+    return out
+
+
+def _combine(res):
+    """The ranks' ``_vs_folded`` sums over the whole leaves (a leaf
+    replicated over both ranks counts twice in a numerator and its
+    denominator alike). Returns per leaf: f32 gradient rel L2; bf16
+    gradient rel L2 against the f32 one over the folded bf16's
+    (``RANK_BF16_VS_F32``), rel L2 to the folded bf16, of the largest;
+    and per state tree (drifts or of the largest, leaves equal, shapes
+    equal)."""
+    def ratio(num, den):        # as rel_l2: the numerator where den is 0
+        return math.sqrt(num / den) if den else math.sqrt(num)
+
+    n = len(res[0]["grads_f32"])
+    f32 = [ratio(sum(r["grads_f32"][i][0] for r in res),
+                 sum(r["grads_f32"][i][1] for r in res)) for i in range(n)]
+    b = [[sum(r["grads_bf16"][i][k] for r in res) for k in range(4)]
+         for i in range(n)]
+    vs32 = [ratio(x[0], x[1]) for x in b]
+    rel16 = [ratio(x[2], x[3]) for x in b]
+    top = max(r["grads_bf16"][i][5] for r in res for i in range(n))
+    of16 = [max(r["grads_bf16"][i][4] for r in res) / top
+            for i in range(n)]
+    state = {}
+    for name in ("params", "stash", "m", "v"):
+        rows = [r[name] for r in res]
+        k = len(rows[0])
+        if name in ("m", "v"):
+            top_s = max(row[i][2] for row in rows for i in range(k))
+            errs = [max(row[i][1] for row in rows) / top_s
+                    for i in range(k)]
+        else:
+            errs = [max(row[i][0] for row in rows) for i in range(k)]
+        state[name] = (errs, sum(all(row[i][3] for row in rows)
+                                 for i in range(k)),
+                       all(row[i][4] for row in rows for i in range(k)))
+    return f32, vs32, rel16, of16, state
+
+
+def rank_gloo_mesh(torch, pool, shape, card, launches, route1):
+    """Phase R (ii) on one mesh: the ranks' run (``rank_gloo_run``), the
+    ranks' turns against the folded engine (``rank_vs_folded``), the
+    folded engine's prefill here, the checks, and the ranks' K4 launches
+    added to ``launches`` / ``route1``. Returns the mesh's summary."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.pipeline.pipeline_step import make_prefill_step
+    Mb = ENGINE_TRAIN_M
+    key = "".join(map(str, shape))
+    cfg = rank_train_cfg(shape)
+    n_local = cfg.layers_per_stage            # slots a rank runs
+    t0 = time.perf_counter()
+    res = pool.run(rank_gloo_run, shape)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vs = pool.run(rank_vs_folded, shape)
+    folded_s = time.perf_counter() - t0
+    rels, vs32, rels16, of16, state_errs = _combine(vs)
+    ref = vs[0]
+    # the folded engine's prefill here, on the same config, draw and prompt
+    mesh = make_debug_mesh(*shape, device="cuda")
+    params = M.init_params(0, cfg, device="cuda")
+    prompt, _ = lm_batch(cfg.vocab_size, PREFILL_B, PREFILL_S, 3,
+                         torch)
+    with torch.no_grad():
+        want = make_prefill_step(mesh, cfg, num_microbatches=4)(
+            params, {"tokens": prompt})
+    logit_rel = rel_l2(torch.from_numpy(res[0]["logits"]).cuda(),
+                       want)
+    del want, params
+    free_card(torch)
+    loss32_ref, loss16_ref = ref["loss_f32"], ref["loss_bf16"]
+    losses_ref = ref["train_losses"]
+    counts = {"ranks": [r["counts"] for r in res],
+              "folded": ref["counts"]}
+
+    worst, worst16, worst_vs32 = max(rels), max(of16), max(vs32)
+    loss_rel = [abs(a - b) / abs(b) for a, b in
+                zip(res[0]["train_losses"], losses_ref)]
+    loss16_rel = abs(res[0]["loss_bf16"] - loss16_ref) / abs(loss16_ref)
+    loss32_err = abs(res[0]["loss_f32"] - loss32_ref)
+    steps = [[r[f"step{i}_ms"] for i in range(RANK_GLOO_STEPS)]
+             for r in res]
+    med = statistics.median(steps[0])
+    state_worst = {k: max(e) for k, (e, _, _) in state_errs.items()}
+    log(f"R (ii) {shape} over {res[0]['backend']}, two ranks on the "
+        f"card: prefill B={PREFILL_B} S={PREFILL_S} M=4 "
+        f"{[round(r['prefill_ms'], 1) for r in res]} ms, last logits "
+        f"rel L2 {logit_rel:.3g} from the folded engine; f32 loss "
+        f"{res[0]['loss_f32']:.6f} vs {loss32_ref:.6f} (|diff| "
+        f"{loss32_err:.3g}), largest f32 gradient rel L2 {worst:.3g} over "
+        f"{len(rels)} leaves (leaf {rels.index(worst)}); bf16 loss "
+        f"{res[0]['loss_bf16']:.6f} vs {loss16_ref:.6f} (rel "
+        f"{loss16_rel:.3g}), bf16 gradients: from the f32 gradient, the "
+        f"ranks' over the folded engine's at most {worst_vs32:.3g} (leaf "
+        f"{vs32.index(worst_vs32)}), largest |error| over the largest "
+        f"|gradient| {worst16:.3g} (leaf {of16.index(worst16)}), "
+        f"largest rel L2 {max(rels16):.3g} (leaf "
+        f"{rels16.index(max(rels16))}); {RANK_GLOO_STEPS} bf16 Adam steps "
+        f"(stash 2, blend every 2) ms by rank "
+        f"{[[round(v, 1) for v in s] for s in steps]} (median "
+        f"{med:.1f}), losses {res[0]['train_losses']} vs the folded "
+        f"{losses_ref} (rel {[f'{v:.3g}' for v in loss_rel]}); final "
+        f"state vs the folded engine's, largest error (params/stash: over "
+        f"the Adam drift bound, at most 1; moments: of the largest) "
+        f"{ {k: f'{v:.3g}' for k, v in state_worst.items()} }, leaves "
+        f"equal bit for bit "
+        f"{ {k: f'{n}/{len(e)}' for k, (e, n, _) in state_errs.items()} }, "
+        f"counts {counts}; peaks {[round(r['peak_gb'], 1) for r in res]} "
+        f"GB; wall {wall:.1f} s, then the ranks' turns with the folded "
+        f"engine {folded_s:.1f} s ({[round(v['turn_s'], 1) for v in vs]} "
+        f"s) ({card})")
+    for r in res:
+        log(f"  rank {r['rank']} {r['coords']}: K4 (all, route 1) "
+            f"{r['k4']} / {r['k4_route1']}; staged through the host "
+            f"[calls, bytes] by run: {r['host_staged']}")
+    check(not any(r["jax"] for r in res), "R (ii): a rank loaded jax")
+    check(logit_rel <= RANK_BF16_REL_L2 and loss16_rel <= RANK_BF16_REL_L2
+          and max(loss_rel) <= RANK_BF16_REL_L2,
+          f"R (ii) {shape}: bf16 logits {logit_rel}, loss {loss16_rel}, "
+          f"train losses {loss_rel} from the folded engine (> "
+          f"{RANK_BF16_REL_L2})")
+    check(loss32_err <= RANK_F32_TOL and worst <= RANK_F32_TOL,
+          f"R (ii) {shape}: f32 loss {loss32_err} and gradients "
+          f"{worst} from the folded engine (> {RANK_F32_TOL})")
+    check(worst_vs32 <= RANK_BF16_VS_F32,
+          f"R (ii) {shape}: a bf16 gradient leaf {worst_vs32} times as "
+          f"far from the f32 one as the folded engine's (> "
+          f"{RANK_BF16_VS_F32})")
+    check(all(ok for _, _, ok in state_errs.values()),
+          f"R (ii) {shape}: a state leaf's shard has another shape than "
+          f"the folded engine's")
+    check(state_worst["params"] <= 1.0 and state_worst["stash"] <= 1.0
+          and state_worst["m"] <= RANK_MOMENTS_VS_GRADS * worst16
+          and state_worst["v"] <= 2 * RANK_MOMENTS_VS_GRADS * worst16,
+          f"R (ii) {shape}: the final state {state_worst} from the "
+          f"folded engine's (the bf16 gradients' {worst16})")
+    check(all(c == (RANK_GLOO_STEPS,) * 2 for c in counts["ranks"])
+          and counts["folded"] == (RANK_GLOO_STEPS,) * 2,
+          f"R (ii) {shape}: step counts {counts}")
+    want_k4 = {"prefill": n_local * 4, "grads_f32": 2 * n_local * Mb,
+               "grads_bf16": 2 * n_local * Mb,
+               **{f"step{i}": 2 * n_local * Mb
+                  for i in range(RANK_GLOO_STEPS)}}
+    want_r1 = dict(want_k4, grads_f32=0)          # f32: route 2
+    for r in res:
+        check(r["k4"] == want_k4 and r["k4_route1"] == want_r1,
+              f"R (ii) {shape} rank {r['rank']}: K4 launches "
+              f"{r['k4']} (route 1 {r['k4_route1']}), not {want_k4} "
+              f"(route 1 {want_r1})")
+    staged = {run: sum(st.get("send", [0, 0])[1] + st.get("recv",
+                                                           [0, 0])[1]
+                       for st in (r["host_staged"][run] for r in res))
+              for run in res[0]["host_staged"]}
+    check(all(v == 0 for v in staged.values()) if shape[1] == 1 else
+          all(v > 0 for v in staged.values()),
+          f"R (ii) {shape}: bytes through the host {staged}")
+    for run in want_k4:
+        launches[f"gloo_{key}_{run}"] = sum(r["k4"][run] for r in res)
+        route1[f"gloo_{key}_{run}"] = sum(r["k4_route1"][run]
+                                          for r in res)
+    return {
+        "prefill_ms": [r["prefill_ms"] for r in res],
+        "prefill_logits_rel_l2": logit_rel,
+        "loss_f32": res[0]["loss_f32"], "folded_loss_f32": loss32_ref,
+        "grad_f32_max_rel_l2": worst, "loss_bf16_rel": loss16_rel,
+        "grad_bf16_max_vs_f32": worst_vs32,
+        "grad_bf16_max_of_largest": worst16,
+        "grad_bf16_max_rel_l2": max(rels16),
+        "step_ms": steps, "step_ms_median": med,
+        "train_losses": res[0]["train_losses"],
+        "folded_train_losses": losses_ref,
+        "state_max_error": state_worst,
+        "state_leaves_equal": {k: [n, len(e)] for k, (e, n, _) in
+                               state_errs.items()},
+        "peak_gb": [r["peak_gb"] for r in res],
+        "host_staged_bytes": staged, "wall_s": wall,
+        "folded_and_compare_s": folded_s}
+
+
+def ranks_phase(torch, card):
+    """Phase R: the pipeline engine over real ranks (one process a mesh
+    position) at qwen2-1.5b's full width. (i) one rank over NCCL, bit for
+    bit the folded engine; (ii) two ranks sharing the card over gloo on
+    (1, 1, 2) (a real tensor axis) and (1, 2, 1) (the stage hand-off
+    between processes): prefill logits, every gradient leaf and the
+    state after 3 Adam steps with the blend against the folded engine
+    within phase E's limits (bf16 logits and losses 2e-2 rel; the f32
+    loss 1e-4 abs and every f32 gradient leaf 1e-4 rel L2, phase E
+    (i)'s; bf16 gradients ``RANK_BF16_VS_F32``, moments
+    ``RANK_MOMENTS_VS_GRADS``), exact
+    K4 counts on every rank; (iii) ``torchrun
+    --nproc-per-node 1 -m repro_torch.launch.train`` over NCCL. Returns
+    the ranks' K4 launches by run (for the kernels line)."""
+    import tempfile
+
+    from repro_torch.pipeline.ranks import RankPool
+    from repro_torch.runtime.net import free_port
+    t_phase = time.perf_counter()
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    launches, route1 = {}, {}
+    summary = {"card": card}
+    Mb, n_layers = ENGINE_TRAIN_M, rank_cfg(1, 1).num_layers
+
+    # ---- (i) one rank over NCCL: bit for bit the folded engine ----------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as d:
+        with RankPool(1, d, backend="nccl", device="cuda",
+                      timeout=RANK_TIMEOUT) as pool:
+            (r,) = pool.run(rank_nccl_train, RANK_NCCL_STEPS)
+    wall = time.perf_counter() - t0
+    per_step = 2 * n_layers * Mb
+    log(f"R (i) one rank over {r['backend']} ({r['rank']['mesh']}) vs the "
+        f"folded engine ({r['folded']['mesh']}), qwen2-1.5b bf16 B="
+        f"{ENGINE_TRAIN_B} S={ENGINE_TRAIN_S} M={Mb}, remat, Adam: losses "
+        f"{r['rank']['losses']} vs {r['folded']['losses']}; {r['leaves']} "
+        f"state leaves equal bit for bit: {r['same']}; step ms "
+        f"{[round(v, 1) for v in r['rank']['step_ms']]} vs "
+        f"{[round(v, 1) for v in r['folded']['step_ms']]}; peak "
+        f"{r['rank']['peak_gb']:.1f} / {r['folded']['peak_gb']:.1f} GB; K4 "
+        f"(all, route 1) a step {r['rank']['k4']} / {r['folded']['k4']}; "
+        f"wall {wall:.1f} s ({card})")
+    check(r["backend"] == "nccl" and not r["jax"], f"R (i) ran on "
+          f"{r['backend']}, jax loaded: {r['jax']}")
+    check(r["same"] and r["rank"]["losses"] == r["folded"]["losses"],
+          "R (i): the one-rank NCCL step is not bit for bit the folded "
+          "engine's")
+    check(all(k == (per_step, per_step) for run in ("rank", "folded")
+              for k in r[run]["k4"]),
+          f"R (i) K4 launches a step, not {per_step} on route 1: "
+          f"{r['rank']['k4']}, {r['folded']['k4']}")
+    launches["nccl_train"] = sum(n for n, _ in r["rank"]["k4"])
+    route1["nccl_train"] = sum(k for _, k in r["rank"]["k4"])
+    summary["nccl"] = {"losses": r["rank"]["losses"],
+                       "folded_losses": r["folded"]["losses"],
+                       "bit_for_bit": r["same"], "leaves": r["leaves"],
+                       "step_ms": r["rank"]["step_ms"],
+                       "folded_step_ms": r["folded"]["step_ms"],
+                       "peak_gb": r["rank"]["peak_gb"], "wall_s": wall}
+
+    # ---- (ii) two ranks sharing the card over gloo, one pool for both
+    # meshes (each call makes its mesh's process groups) ------------------
+    with tempfile.TemporaryDirectory(dir=build_dir) as d, RankPool(
+            2, os.path.join(d, "store"), backend="gloo", device="cuda",
+            timeout=RANK_TIMEOUT) as pool:
+        for shape in RANK_GLOO_MESHES:
+            summary["gloo_" + "".join(map(str, shape))] = rank_gloo_mesh(
+                torch, pool, shape, card, launches, route1)
+
+    # ---- (iii) torchrun of the train entry point, one rank over NCCL ----
+    out, train_s = run_entry_point(
+        ["torch.distributed.run", "--nproc-per-node", "1", "--master-addr",
+         "127.0.0.1", "--master-port", str(free_port()),
+         "-m", "repro_torch.launch.train", "--debug-mesh", "1,1,1",
+         "--steps", "20", "--lr", "0.005"], "R (iii)")
+    check("ranks (nccl)" in out and "(improved)" in out,
+          "torchrun of launch.train did not train on an NCCL rank or did "
+          "not improve")
+    summary.update(torchrun_train_s=train_s, k4_launches=launches,
+                   k4_route1=route1,
+                   wall_s=time.perf_counter() - t_phase)
+    log(f"phase R took {summary['wall_s']:.1f}s")
+    print(json.dumps({"slice_ranks": summary}), flush=True)
+    return summary
+
+
 def main():
     t_smoke = time.perf_counter()
     import torch
@@ -3508,6 +4150,10 @@ def main():
     del handoff
     free_card(torch)
 
+    # ---- phase R: the pipeline engine over real ranks -----------------------
+    r_run = ranks_phase(torch, card)
+    free_card(torch)
+
     # ---- phase 4: K1 at the run's slice sizes, then timings -----------------
     sizes = sorted({s for r in (res, *f_runs)
                     for _, pts in r.partitions
@@ -3578,12 +4224,12 @@ def main():
                  for r in z_runs},
               **{f"{name}_{r}": v for name, run in (
                   ("olmoe", m_run), ("xlstm", x_run), ("whisper", w_run),
-                  ("engine", e_run))
+                  ("engine", e_run), ("ranks", r_run))
                  for r, v in run["k4_launches"].items()}}
     top = k4_times[0]                    # B=4, S=2048, causal, bf16
     n_k4 = sum(by_run.values())
     n_route1 = sum(sum(run["k4_route1"].values())
-                   for run in (t_run, z_run, m_run, w_run, e_run))
+                   for run in (t_run, z_run, m_run, w_run, e_run, r_run))
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         # route 1 (bf16, the serving path's dtype) is the one timed here;

@@ -11,8 +11,9 @@ count reads the same work whatever implements it, the kernel on CUDA,
 the plain version on the CPU, or shapes only on the meta device.
 
 Not applicable: ``shard_map`` and ``shard_map_is_legacy``. The port's
-engine folds its mesh onto one device (``pipeline/pipeline_step.py``)
-and maps no function over a device mesh.
+engine folds its mesh onto one device or runs one process a mesh
+position (``pipeline/pipeline_step.py``); it maps no function over a
+device mesh.
 """
 from __future__ import annotations
 

@@ -11,9 +11,9 @@ below 700 W (``nvidia-smi``'s ``power.limit``) runs slower under load.
 
 Not ported, having no meaning without XLA: ``collective_bytes`` and
 ``_shape_bytes``, which parse the collectives out of compiled HLO text.
-The port's engine folds its mesh onto one device and issues no
-collective; ``cost_model.collective_bytes_per_device`` gives the bytes a
-multi-GPU backend would move.
+The port's collectives are ``torch.distributed`` calls
+(``repro_torch.collectives``), not HLO; the bytes a mesh of devices
+moves come from ``cost_model.collective_bytes_per_device``.
 """
 from __future__ import annotations
 

@@ -1,11 +1,16 @@
 """End-to-end training entry point of the port.
 
 Runs the stack (config -> init -> pipelined train step -> data ->
-checkpoint) through the one-device engine (``pipeline/pipeline_step.py``)
+checkpoint) through the pipeline engine (``pipeline/pipeline_step.py``)
 on ``--device`` (default ``cuda``; without a GPU it exits non-zero unless
 given ``--device cpu``: it never falls back to the CPU on its own).
-``--debug-mesh`` is the (data, stage, tensor) mesh the engine schedules,
-folded onto that device; reduced configs (the default) train a real small
+``--debug-mesh`` is the (data, stage, tensor) mesh the engine schedules:
+folded onto that device, or, under ``torchrun``, one process a mesh
+position (the world size must be the mesh's; NCCL on CUDA, each rank on
+GPU ``LOCAL_RANK``; gloo on the CPU). Each rank builds the same model
+from the seed, keeps its shards and trains on the same global batches;
+rank 0 prints, and each rank checkpoints its own shards under
+``--ckpt-dir``/rank<r>. Reduced configs (the default) train a real small
 model.
 
 Examples:
@@ -15,8 +20,11 @@ Examples:
       --steps 100 --aggregate-every 4
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --debug-mesh 1,2,1 --steps 20
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --device cpu --debug-mesh 1,2,1 --steps 20 --lr 0.005
 """
 import argparse
+import os
 import sys
 
 
@@ -51,15 +59,20 @@ def main(argv=None) -> bool:
     from repro_torch.checkpoint import CheckpointStore
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data.synthetic import SyntheticLM, lm_batches
-    from repro_torch.launch.mesh import make_debug_mesh, mesh_context
+    from repro_torch.launch.mesh import (init_ranks_from_env,
+                                         make_debug_mesh, mesh_context)
     from repro_torch.models import model as model_lib
     from repro_torch.pipeline.pipeline_step import make_train_step
+    from repro_torch.pipeline.sharding import shard_params
 
     dims = [int(x) for x in args.debug_mesh.split(",")]
     try:
-        mesh = make_debug_mesh(*dims, device=args.device)
-    except RuntimeError as e:           # no CUDA device and no --device cpu
-        sys.exit(f"error: {e}")
+        dev = init_ranks_from_env(args.device) or args.device
+        mesh = make_debug_mesh(*dims, device=dev)
+    except (RuntimeError, ValueError) as e:   # no CUDA device and no
+        sys.exit(f"error: {e}")               # --device cpu; a bad world
+    rank = getattr(mesh, "rank", None)
+    say = print if not rank else (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(pipeline_stages=dims[1], tensor_parallel=dims[2],
@@ -70,13 +83,20 @@ def main(argv=None) -> bool:
                      microbatches=args.microbatches, weight_decay=0.0)
 
     with mesh_context(mesh):
-        print(f"training {cfg.name} on {mesh.device}", flush=True)
+        where = (f"{mesh.device}" if rank is None else
+                 f"{mesh.shape} ranks ({mesh.backend})")
+        say(f"training {cfg.name} on {where}", flush=True)
         params = model_lib.init_params(0, cfg, device=mesh.device)
+        if rank is not None:
+            params = shard_params(params, mesh, cfg)
         train_step, _ = make_train_step(mesh, cfg, tc)
         state = train_step.init_state(params)
 
         ds = SyntheticLM(vocab_size=cfg.vocab_size)
-        ckpt = CheckpointStore(args.ckpt_dir) if args.ckpt_dir else None
+        ckpt = None
+        if args.ckpt_dir:
+            ckpt = CheckpointStore(args.ckpt_dir if rank is None else
+                                   os.path.join(args.ckpt_dir, f"rank{rank}"))
         losses = []
         for i, (x, y) in enumerate(lm_batches(ds, args.global_batch,
                                               args.seq_len, args.steps)):
@@ -85,15 +105,18 @@ def main(argv=None) -> bool:
                         "labels": torch.as_tensor(y, device=mesh.device)})
             losses.append(float(metrics["loss"]))
             if i % 10 == 0 or i == args.steps - 1:
-                print(f"step {i:4d} loss {losses[-1]:.4f}", flush=True)
+                say(f"step {i:4d} loss {losses[-1]:.4f}", flush=True)
             if ckpt and (i + 1) % 50 == 0:
                 ckpt.save(i + 1, state["params"])
         first = float(np.mean(losses[:5]))
         last = float(np.mean(losses[-5:]))
-        print(f"loss {first:.4f} -> {last:.4f} "
-              f"({'improved' if last < first else 'NOT improved'})",
-              flush=True)
-        return last < first
+        say(f"loss {first:.4f} -> {last:.4f} "
+            f"({'improved' if last < first else 'NOT improved'})",
+            flush=True)
+    if rank is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+    return last < first
 
 
 if __name__ == "__main__":

@@ -4,8 +4,10 @@ The port of ``repro.models.moe``. Dispatch is scatter/gather
 (Megablocks-style), not compute-every-expert: each expert runs on a
 ``[C, d]`` buffer of the tokens routed to it, ``C`` the capacity. The
 layout keeps the JAX package's expert-parallel split (the shard owns
-``E_local`` contiguous experts from ``e0``); the port has ``TP.none()``
-only, so one shard owns them all.
+``E_local`` contiguous experts from ``e0``): under ``TP.none()`` one
+shard owns them all, on a tensor rank (``TP.of(mesh)``) its ``E // T``
+experts from ``index() * E // T``, the rest of the routes summed in by
+the block's ``psum``.
 
 What decides which route is kept must be the JAX package's exactly:
   - top-k keeps the lower expert index on ties (``jax.lax.top_k``): the

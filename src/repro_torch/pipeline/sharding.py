@@ -4,21 +4,31 @@ The port of ``repro.pipeline.sharding``. Mesh axes: ("pod"?, "data",
 "extra"?, "stage", "tensor"). A spec here is plain data, a tuple ``P`` of
 the same entries as the JAX package's ``PartitionSpec``: per dimension of
 a leaf, the mesh axis (or tuple of axes) it is split over, or None. The
-one-device engine reads none of them (it folds every axis, see
-``pipeline_step.py``); they record the layout a multi-device backend
-shards by, and mirror each block type's parameter tree exactly (tested
-against the port's init trees). The leading axis of every stacked leaf is
-"stage"; tensor-parallel dims follow Megatron's conventions (column for
+specs mirror each block type's parameter tree exactly (tested against the
+port's init trees). The leading axis of every stacked leaf is "stage";
+tensor-parallel dims follow Megatron's conventions (column for
 up/QKV/head-emitting weights, row for down/output projections); GQA kv
 weights are replicated over tensor when num_kv_heads < tensor_parallel.
 
-``param_shardings`` (``NamedSharding`` over a device mesh) has no meaning
-on one device; it waits for the multi-GPU backend of ROADMAP Queue 1
-item 12.
+The folded engine reads none of them (it runs whole weights, see
+``pipeline_step.py``). On ranks (``launch/mesh.RankMesh``) each rank holds
+its shard of every leaf: ``param_shardings`` gives a ``Sharding`` per
+leaf (what ``NamedSharding`` says of it: the shard's shape, the slice a
+rank holds, the axes it is replicated over), ``shard_params`` /
+``shard_caches`` cut a rank's shards out of a whole tree and
+``gather_params`` / ``gather_caches`` put the ranks' shards together
+again.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+
+import torch
+
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import rank_coords
 
 AXIS_POD = "pod"
 AXIS_DATA = "data"
@@ -177,3 +187,139 @@ def _final_norm_spec(cfg):
     if cfg.family == "audio":
         d["bias"] = P(None)
     return d
+
+
+# ------------------------------ shardings --------------------------------
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A leaf's layout over a mesh (``NamedSharding(mesh, spec)``): dim i
+    is split over the axes of ``spec[i]``, in their row-major order."""
+    axis_names: tuple[str, ...]
+    axis_sizes: tuple[int, ...]
+    spec: P
+
+    def _split(self, dim: int) -> tuple[str, ...]:
+        return _entry_axes(self.spec[dim]) if dim < len(self.spec) else ()
+
+    def _ways(self, axes) -> int:
+        sizes = dict(zip(self.axis_names, self.axis_sizes))
+        return math.prod(sizes[a] for a in axes)
+
+    def shard_shape(self, shape) -> tuple[int, ...]:
+        out = []
+        for i, n in enumerate(shape):
+            k = self._ways(self._split(i))
+            if n % k:
+                raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                                 f"{k} ways ({self.spec})")
+            out.append(n // k)
+        return tuple(out)
+
+    def slices(self, shape, coords: dict) -> tuple[slice, ...]:
+        """The slice of a whole leaf of ``shape`` that the rank at
+        ``coords`` holds."""
+        sizes = dict(zip(self.axis_names, self.axis_sizes))
+        local = self.shard_shape(shape)
+        out = []
+        for i, n in enumerate(local):
+            idx = 0
+            for a in self._split(i):
+                idx = idx * sizes[a] + coords[a]
+            out.append(slice(idx * n, (idx + 1) * n))
+        return tuple(out)
+
+    def replicated_over(self) -> tuple[str, ...]:
+        """The mesh axes no dim is split over: the ranks along them hold
+        the same shard (and sum its gradient)."""
+        named = {a for e in self.spec for a in _entry_axes(e)}
+        return tuple(a for a in self.axis_names if a not in named)
+
+
+def _shardings(mesh, specs):
+    names = tuple(mesh.axis_names)
+    sizes = tuple(mesh.shape[a] for a in names)
+    leaves, paths = tree.flatten(specs)
+    return tree.unflatten(paths, [Sharding(names, sizes, sp)
+                                  for sp in leaves])
+
+
+def param_shardings(mesh, cfg: ModelConfig):
+    """A ``Sharding`` per leaf of ``init_params``' tree on ``mesh`` (a
+    ``LocalMesh`` or a ``RankMesh``: only its axes count)."""
+    return _shardings(mesh, model_param_specs(cfg))
+
+
+def cache_shardings(mesh, cfg: ModelConfig, layout=None,
+                    data_sharded: bool = True):
+    """A ``Sharding`` per leaf of ``init_caches``' tree on ``mesh``."""
+    batch = data_axes(mesh) if data_sharded else None
+    return _shardings(mesh, [cache_specs(t, cfg, batch)
+                             for t in (layout or cfg.slot_layout)])
+
+
+def _coords(mesh, rank):
+    if rank is None:
+        return mesh.coords
+    return rank_coords(tuple(mesh.axis_names),
+                       tuple(mesh.shape[a] for a in mesh.axis_names), rank)
+
+
+def shard_tree(whole, shardings, mesh, rank=None):
+    """The shards of ``whole`` that ``rank`` (default: the ``RankMesh``'s
+    own) holds: new contiguous tensors, on the leaves' device."""
+    coords = _coords(mesh, rank)
+    return tree.map(lambda a, sh: a[sh.slices(a.shape, coords)].clone(),
+                    whole, shardings)
+
+
+def gather_tree(parts, shardings, mesh):
+    """The whole tree from every rank's shards (``parts[r]``: global rank
+    r's tree of shards, on one device)."""
+    world = math.prod(mesh.shape.values())
+    if len(parts) != world:
+        raise ValueError(f"{len(parts)} shard trees for {world} ranks")
+    sh_leaves, paths = tree.flatten(shardings)
+    by_rank = [tree.leaves(p) for p in parts]
+    out = []
+    for i, sh in enumerate(sh_leaves):
+        first = by_rank[0][i]
+        mult = [sh._ways(sh._split(d)) for d in range(first.ndim)]
+        whole = torch.empty([n * k for n, k in zip(first.shape, mult)],
+                            dtype=first.dtype, device=first.device)
+        for r in range(world):
+            whole[sh.slices(whole.shape, _coords(mesh, r))] = \
+                by_rank[r][i].to(whole.device)
+        out.append(whole)
+    return tree.unflatten(paths, out)
+
+
+def shard_params(params, mesh, cfg: ModelConfig, rank=None):
+    """``rank``'s shards of a whole ``init_params`` tree (made by the
+    port, or carried across from the JAX package's weights)."""
+    return shard_tree(params, param_shardings(mesh, cfg), mesh, rank)
+
+
+def gather_params(parts, mesh, cfg: ModelConfig):
+    """The inverse of ``shard_params``: ``parts[r]`` is rank r's shards."""
+    return gather_tree(parts, param_shardings(mesh, cfg), mesh)
+
+
+def shard_caches(caches, mesh, cfg: ModelConfig, layout=None,
+                 data_sharded: bool = True, rank=None):
+    """``rank``'s shards of whole ``init_caches`` caches: its stage, its
+    batch rows and its kv heads."""
+    return shard_tree(caches, cache_shardings(mesh, cfg, layout,
+                                              data_sharded), mesh, rank)
+
+
+def gather_caches(parts, mesh, cfg: ModelConfig, layout=None,
+                  data_sharded: bool = True):
+    return gather_tree(parts, cache_shardings(mesh, cfg, layout,
+                                              data_sharded), mesh)

@@ -88,12 +88,16 @@ def test_init_params_is_deterministic_in_the_seed_and_has_the_layout():
 
 
 def test_unported_parts_raise():
-    """Only tensor parallelism (ROADMAP Queue 1 item 12) still raises:
-    every slot type of the JAX package is a real slot of the port, and
+    """Nothing is left unported: ``TP("tensor", 2)`` is a real tensor axis
+    (ROADMAP Queue 1 item 12; its collectives need the process group a
+    ``RankMesh`` gives, ``TP.of(mesh)``, and raise without one), every
+    slot type of the JAX package is a real slot of the port, and
     ``init_params`` builds every architecture at reduced size with the
     JAX package's leaf shapes."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TP("tensor", 2)
+    tp = TP("tensor", 2)
+    assert (tp.axis, tp.size, tp.index()) == ("tensor", 2, 0)
+    with pytest.raises(ValueError, match="process group"):
+        tp.psum(torch.ones(2))
     assert set(blocks.BLOCKS) == set(jblocks.BLOCKS)
     for name, slot in blocks.BLOCKS.items():
         assert isinstance(slot, type) and callable(slot.init), name

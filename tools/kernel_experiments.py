@@ -819,7 +819,8 @@ def engine():
         weight_decay=0.0), torch)
     del g
     _, blend_ms = synced_ms(lambda: ps._stage_window_blend(
-        cfg, state["params"]["blocks"], state["stash"]["blocks"]), torch)
+        mesh, cfg, state["params"]["blocks"], state["stash"]["blocks"]),
+        torch)
     emit(what="engine_train_step_pieces", loss_and_backward_ms=loss_ms,
          adam_ms=adam_ms, blend_ms=blend_ms,
          parameters=sum(t.numel() for t in leaves))
