@@ -207,12 +207,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      count at ticks = M;
   R. the pipeline engine over real ranks (``pipeline/ranks.RankPool``:
      one spawned process a mesh position, a ``FileStore`` rendezvous,
-     bounded waits) at qwen2-1.5b's full width: (i) one rank over NCCL,
-     2 bf16 Adam steps (B=4, S=1,024, M=4, remat, stash 2, blend every 2)
-     of the rank engine, then of the folded engine on the same config,
-     draw and batch in that process (the parent holds no model): the
-     same losses and every state leaf equal bit for bit, 224 K4 launches
-     a step on route 1; (ii) two ranks sharing the card over gloo (NCCL
+     bounded waits) at qwen2-1.5b's full width, ``RANK_LAYERS`` of its 28
+     layers (the depth cut so that phase G fits the time limit): (i) one
+     rank over NCCL, 2 bf16 Adam steps (B=4, S=1,024, M=4, remat, stash
+     2, blend every 2) of the rank engine, then of the folded engine on
+     the same config, draw and batch in that process (the parent holds
+     no model): the same losses and every state leaf equal bit for bit,
+     2 x layers x M K4 launches a step on route 1; (ii) two ranks sharing the card over gloo (NCCL
      puts no two ranks on one GPU), on (1, 1, 2) (a real tensor axis: K4
      at H=6, Hkv=1) and (1, 2, 1) (the stage hand-off between
      processes): the bf16 pipelined prefill (B=4, S=2,048, M=4) against
@@ -234,6 +235,21 @@ Phases, each fatal on failure (exit code 1, no result line):
      each rank's peak; (iii) ``torchrun --nproc-per-node 1 -m
      repro_torch.launch.train --debug-mesh 1,1,1 --steps 20`` (exit 0,
      an NCCL rank, "improved"); a ``{"slice_ranks": ...}`` line;
+  G. the thirteen examples of ``examples_torch/`` as a user starts them,
+     with no flags (train_e2e at its default width with ``--steps 100``,
+     its first checkpoint, which ``CheckpointStore.restore_latest`` reads
+     back: step 100, finite, trained), each within ``EXAMPLE_TIMEOUT``:
+     the simulator demos, the LM examples and the two queue demos through
+     their ``main`` in this process, where every kernel's launches are
+     counted around the call; the TCP, compressed-wire, rejoin,
+     coordinator-failover and fleet demos as subprocesses (they start
+     processes of their own), which print their own process's K1-K3
+     launches. Each returns 0, ends with its own verdict line, and
+     launches each kernel within ``G_LAUNCHES`` (worked out from the code
+     before the first run; K4 and K5 none). An ``{"examples": ...}`` line:
+     each example's wall s, return code, launches and headline figures
+     (bytes ratios, recovery s, first and last loss, tokens/s, parameter
+     count);
   4. K1 again at every stage-slice size the run used, then each kernel's
      time beside its bound, its plain version's and, where one PyTorch
      call computes the same function, that call's (K1:
@@ -1029,9 +1045,16 @@ def run_entry_point(args, phase, timeout=300):
     with a bounded wait (the whole group is killed on timeout, so no
     process outlives the smoke). Fails unless it exits 0. Returns (its
     standard output, wall s)."""
+    return run_python(["-m", *args], phase, timeout)
+
+
+def run_python(args, phase, timeout=300):
+    """``python <args>`` (a script or ``-m`` a module), as
+    ``run_entry_point`` runs it."""
     import signal
-    cmd = [sys.executable, "-m", *args]
+    cmd = [sys.executable, *args]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    args = args[1:] if args[0] == "-m" else args
     log(f"phase {phase}: " + " ".join(args))
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
@@ -3451,13 +3474,16 @@ RANK_MOMENTS_VS_GRADS = 2.0
 ADAM_STEP_MAX = 1.001
 RANK_F32_TOL = 1e-4          # phase E (i)'s f32 loss and gradient limits
 RANK_TIMEOUT = 600.0         # seconds a rank call may take
+# qwen2-1.5b's layers phase R runs (of 28; every width kept): the depth
+# cut that leaves the smoke room for phase G's examples (PERF.md §6 PR 28)
+RANK_LAYERS = 8
 
 
 def rank_cfg(stages, tensor):
-    """qwen2-1.5b at its published widths, its 28 layers over ``stages``
-    stages, tensor parallel ``tensor``, with K4."""
+    """qwen2-1.5b at its published widths, ``RANK_LAYERS`` layers over
+    ``stages`` stages, tensor parallel ``tensor``, with K4."""
     from repro_torch.configs import get_config
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config("qwen2-1.5b").with_overrides(num_layers=RANK_LAYERS)
     lps = cfg.num_layers // stages
     return cfg.with_overrides(pipeline_stages=stages, tensor_parallel=tensor,
                               layers_per_stage=lps,
@@ -3940,8 +3966,8 @@ def rank_gloo_mesh(torch, pool, shape, card, launches, route1):
 
 def ranks_phase(torch, card):
     """Phase R: the pipeline engine over real ranks (one process a mesh
-    position) at qwen2-1.5b's full width. (i) one rank over NCCL, bit for
-    bit the folded engine; (ii) two ranks sharing the card over gloo on
+    position) at qwen2-1.5b's full width, ``RANK_LAYERS`` layers deep:
+    (i) one rank over NCCL, bit for bit the folded engine; (ii) two ranks sharing the card over gloo on
     (1, 1, 2) (a real tensor axis) and (1, 2, 1) (the stage hand-off
     between processes): prefill logits, every gradient leaf and the
     state after 3 Adam steps with the blend against the folded engine
@@ -3960,8 +3986,8 @@ def ranks_phase(torch, card):
     build_dir = os.path.join(ROOT, "build")
     os.makedirs(build_dir, exist_ok=True)
     launches, route1 = {}, {}
-    summary = {"card": card}
     Mb, n_layers = ENGINE_TRAIN_M, rank_cfg(1, 1).num_layers
+    summary = {"card": card, "layers": n_layers}
 
     # ---- (i) one rank over NCCL: bit for bit the folded engine ----------
     t0 = time.perf_counter()
@@ -3972,7 +3998,8 @@ def ranks_phase(torch, card):
     wall = time.perf_counter() - t0
     per_step = 2 * n_layers * Mb
     log(f"R (i) one rank over {r['backend']} ({r['rank']['mesh']}) vs the "
-        f"folded engine ({r['folded']['mesh']}), qwen2-1.5b bf16 B="
+        f"folded engine ({r['folded']['mesh']}), qwen2-1.5b ({n_layers} "
+        f"layers) bf16 B="
         f"{ENGINE_TRAIN_B} S={ENGINE_TRAIN_S} M={Mb}, remat, Adam: losses "
         f"{r['rank']['losses']} vs {r['folded']['losses']}; {r['leaves']} "
         f"state leaves equal bit for bit: {r['same']}; step ms "
@@ -4022,6 +4049,246 @@ def ranks_phase(torch, card):
                    wall_s=time.perf_counter() - t_phase)
     log(f"phase R took {summary['wall_s']:.1f}s")
     print(json.dumps({"slice_ranks": summary}), flush=True)
+    return summary
+
+
+# ---------------------------- the examples (G) ----------------------------
+
+EXAMPLE_TIMEOUT = 300.0      # seconds an example may take
+# (name, arguments, run in this process, the start of its last line). The
+# examples whose kernels would run in this process are called through
+# ``main`` here, so their launches are counted; those that start processes
+# of their own run as a user starts them, as subprocesses, and are held by
+# their own checks, their exit code and the launches they print for their
+# own process. train_e2e runs at its default width for 100 steps, its
+# first checkpoint.
+G_EXAMPLES = (
+    ("heterogeneous_partition", [], True, "single fastest device epoch:"),
+    ("fault_tolerance_demo", [], True, "recovery overhead: ftpipehd"),
+    ("continuous_batching", [], True, "PASS"),
+    ("quickstart", [], True, "quickstart OK"),
+    ("train_e2e", ["--steps", "100"], True, "checkpoints: [100]"),
+    ("serve_pipeline", [], True, "stream[2]:"),
+    ("live_fault_tolerance", [], True, "PASS"),
+    ("live_wan_heterogeneity", [], True, "PASS"),
+    ("live_tcp_fault_tolerance", [], False, "PASS"),
+    ("live_compressed_wire", [], False, "PASS"),
+    ("live_elastic_rejoin", [], False, "PASS"),
+    ("live_coordinator_failover", [], False, "PASS"),
+    ("live_fleet_chain_failure", [], False, "PASS"),
+)
+G_KERNELS = ("fused_sgd", "quantize_ef", "dequantize", "flash_attention",
+             "ssd_scan")
+# The launches each example makes in the process that runs it, worked out
+# from the code before the first run (PERF.md §6, PR 28): (least, most),
+# most None where a kill's timing decides how many batches run again. No
+# example sets use_flash_attention (the JAX examples leave it at 0), and
+# serve_pipeline decodes only (K5 runs in prefill), so no example
+# launches K4 or K5. A live run's stages each apply one fused SGD update a
+# batch (StageExecutor._step_fused): at least 2 a committed batch with 2
+# or 3 stages, 1 where only stage 0 runs in the process (TCP). The
+# int8-fused tier quantizes every act and grad sent (2 a batch with 2
+# stages) and dequantizes every act received, again in the backward, and
+# every grad received (3 a batch). Subprocess demos print K1-K3 only.
+G_ZERO = {k: (0, 0) for k in G_KERNELS}
+G_LAUNCHES = {
+    "live_fault_tolerance": {**G_ZERO, "fused_sgd": (2 * 40, None)},
+    "live_wan_heterogeneity": {**G_ZERO, "fused_sgd": (2 * 16, None)},
+    # worker 0 (stage 0) runs in the demo's process
+    "live_tcp_fault_tolerance": {"fused_sgd": (32, None)},
+    # two TCP runs (stage 0 here) + two queue runs (every stage here)
+    "live_compressed_wire": {"fused_sgd": (2 * 20 + 2 * 2 * 20, None),
+                             "quantize_ef": (2 * 20, None),
+                             "dequantize": (3 * 20, None)},
+    "live_elastic_rejoin": {"fused_sgd": (40, None)},
+    # the queue reference (3 stages, 40 batches, no kill) + the resumed
+    # coordinator's stage 0 from batch 8
+    "live_coordinator_failover": {"fused_sgd": (3 * 40 + 32, None)},
+    # each chain's coordinator (stage 0) runs here: the reference fleet's
+    # 2 x 24 batches, the killed fleet's chain 0 (24) and chain 1's second
+    # incarnation (from round 18)
+    "live_fleet_chain_failure": {"fused_sgd": (2 * 24 + 24 + 6, None)},
+}
+# the figures each example is read for: (key, regular expression whose
+# group is a number); a pattern that matches more than once gives a list
+G_HEADLINES = {
+    # ftpipehd's, then pipedream's, on the simulator's virtual clock
+    "heterogeneous_partition": [("sim_steady_batch_s",
+                                 r"steady per-batch ([\d.]+)s")],
+    "fault_tolerance_demo": [("sim_recovery_overhead_s",
+                              r"recovery overhead: ftpipehd ([\d.]+)s")],
+    "continuous_batching": [("engine_steps", r"drained in (\d+)")],
+    "quickstart": [("loss_first5", r"loss: ([\d.]+) ->"),
+                   ("loss_last5", r"loss: [\d.]+ -> ([\d.]+)")],
+    "train_e2e": [("params_m", r"([\d.]+)M params"),
+                  ("loss_first5", r"loss ([\d.]+) ->"),
+                  ("loss_last5", r"loss [\d.]+ -> ([\d.]+)")],
+    "serve_pipeline": [("tok_per_s", r"\((\d+) tok/s")],
+    # data plane and replicas (int8 over TCP), data plane (int8-fused)
+    "live_compressed_wire": [("bytes_ratios", r"\(([\d.]+)x smaller\)"),
+                             ("max_loss_diffs",
+                              r"max \|loss diff\| = ([\d.]+)")],
+    "live_coordinator_failover": [
+        ("max_divergence", r"vs uninterrupted reference: ([\d.]+)")],
+    "live_fleet_chain_failure": [("final_loss_diff",
+                                  r"\|diff\| = ([\d.]+)\)")],
+}
+
+
+def example_path(name):
+    return os.path.join(ROOT, "examples_torch", f"{name}.py")
+
+
+def load_example(name):
+    """``examples_torch/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  example_path(name))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example_here(name, argv, timeout):
+    """``main(argv)`` of ``examples_torch/<name>.py`` in this process, on a
+    thread with a bounded wait, its standard output captured. Returns (its
+    return code, its output, wall s)."""
+    import io
+    import threading
+    mod = load_example(name)
+    box = {}
+
+    def call():
+        try:
+            box["rc"] = mod.main(argv)
+        except BaseException as e:            # reported below
+            box["error"] = e
+
+    buf = io.StringIO()
+    log(f"phase G: main({argv}) of examples_torch/{name}.py")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        th = threading.Thread(target=call, name=f"example-{name}",
+                              daemon=True)
+        th.start()
+        th.join(timeout)
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    check(not th.is_alive(), f"phase G: {name} did not finish in "
+          f"{timeout} s")
+    check("error" not in box, f"phase G: {name} raised {box.get('error')!r}")
+    return box["rc"], out, wall
+
+
+def event_times(out, text):
+    """The times (s) of the printed events that start with ``text``."""
+    import re
+    return [float(t) for t in re.findall(
+        r"t=\s*([\d.]+)s\s+" + re.escape(text), out)]
+
+
+def example_figures(name, out, wall):
+    """An example's headline figures, read from its output."""
+    import re
+    fig = {}
+    for key, pattern in G_HEADLINES.get(name, []):
+        vals = [float(v) for v in re.findall(pattern, out)]
+        check(vals, f"phase G: {name} printed no {key}")
+        fig[key] = vals if len(vals) > 1 else vals[0]
+    kill, rec = event_times(out, "KILL"), event_times(out, "recovered:")
+    if kill and rec:
+        fig["recovery_s"] = rec[0] - kill[0]
+    adm = event_times(out, "admitted:")
+    if kill and adm:
+        fig["kill_to_rejoin_s"] = adm[0] - kill[0]
+    if name == "continuous_batching":
+        fig["tokens_per_s"] = 4 * 8 / wall
+    if name == "train_e2e":       # set-up, 100 steps and checkpoint
+        fig["tokens_per_s"] = 100 * 8 * 256 / wall
+    return fig
+
+
+def printed_launches(out):
+    """{kernel: launches} an example printed for its own process."""
+    import re
+    line = re.findall(r"kernel launches in this process: (.*)", out)
+    return {k: int(v) for k, v in re.findall(r"(\w+) (\d+)",
+                                             line[-1])} if line else {}
+
+
+def examples_phase(torch, card):
+    """Phase G: the thirteen examples of ``examples_torch/`` as a user
+    starts them (``G_EXAMPLES``): each returns 0 and ends with its verdict
+    line; the kernel launches of each, counted here for those run in this
+    process and read from the output of the others, within
+    ``G_LAUNCHES``; train_e2e's checkpoint read back. Prints an
+    ``{"examples": ...}`` line."""
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.fused_sgd import ops
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.models import model as M
+    counters = {"fused_sgd": ops.fused_sgd, "quantize_ef": qops.quantize_ef,
+                "dequantize": qops.dequantize,
+                "flash_attention": fops.flash_attention_kernel,
+                "ssd_scan": sops.ssd_scan_kernel}
+    t_phase = time.perf_counter()
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    summary = {"card": card}
+    with tempfile.TemporaryDirectory(dir=build_dir) as ckpt:
+        for name, argv, here, verdict in G_EXAMPLES:
+            if name == "train_e2e":
+                argv = argv + ["--ckpt", ckpt]
+            if here:
+                for fn in counters.values():
+                    fn.launches = 0
+                reset_k4(fops.flash_attention_kernel)
+                rc, out, wall = run_example_here(name, argv,
+                                                 EXAMPLE_TIMEOUT)
+                launches = {k: fn.launches for k, fn in counters.items()}
+                free_card(torch)
+            else:
+                out, wall = run_python([example_path(name), *argv], "G",
+                                       EXAMPLE_TIMEOUT)
+                rc, launches = 0, printed_launches(out)
+            last = out.rstrip().splitlines()[-1] if out.strip() else ""
+            check(rc == 0, f"phase G: {name} returned {rc}")
+            check(last.startswith(verdict), f"phase G: {name} ended with "
+                  f"{last!r}, not {verdict!r}")
+            want = G_LAUNCHES.get(name, G_ZERO if here else {})
+            for k, (lo, hi) in want.items():
+                n = launches.get(k)
+                check(n is not None and n >= lo and (hi is None or n <= hi),
+                      f"phase G: {name} launched {k} {n} times, predicted "
+                      f"{lo}..{'' if hi is None else hi}")
+            summary[name] = {"wall_s": wall, "rc": rc, "in_process": here,
+                             "launches": launches,
+                             **example_figures(name, out, wall)}
+            log(f"phase G: {name} {wall:.1f} s, launches {launches}")
+        cfg = load_example("train_e2e").config(tiny=False)
+        init = M.init_params(0, cfg, device="cuda")
+        restored, step = CheckpointStore(ckpt).restore_latest(init)
+        check(step == 100 and all(bool(torch.isfinite(t).all())
+                                  for t in tree.leaves(restored)),
+              f"train_e2e's checkpoint: step {step}")
+        moved = sum(not torch.equal(a, b) for a, b in
+                    zip(tree.leaves(restored), tree.leaves(init)))
+        check(moved > 0, "train_e2e's checkpoint holds the initial params")
+        summary["train_e2e"]["checkpoint"] = {
+            "step": step, "leaves": len(tree.leaves(restored)),
+            "leaves_trained": moved}
+        del init, restored
+    free_card(torch)
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase G took {summary['wall_s']:.1f}s")
+    print(json.dumps({"examples": summary}), flush=True)
     return summary
 
 
@@ -4154,6 +4421,9 @@ def main():
     r_run = ranks_phase(torch, card)
     free_card(torch)
 
+    # ---- phase G: the examples, as a user starts them -----------------------
+    g_run = examples_phase(torch, card)
+
     # ---- phase 4: K1 at the run's slice sizes, then timings -----------------
     sizes = sorted({s for r in (res, *f_runs)
                     for _, pts in r.partitions
@@ -4273,6 +4543,11 @@ def main():
         "ms_by_pass": k5_passes,
         "library_note": "no single PyTorch call computes the SSD scan",
         "per_shape": k5_times})
+    for entry in kernels:          # phase G's launches, by example
+        entry["launches_in_examples"] = {
+            name: run["launches"][entry["name"]]
+            for name, run in g_run.items() if isinstance(run, dict)
+            and run.get("launches", {}).get(entry["name"])}
     log(f"smoke wall time {time.perf_counter() - t_smoke:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

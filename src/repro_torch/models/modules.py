@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -162,3 +164,11 @@ def sinusoidal_positions(max_len: int, dim: int, device="cpu"):
     ang = pos / (10_000 ** (2 * i / dim))
     table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
     return torch.as_tensor(table.astype(np.float32), device=device)
+
+
+# -------------------------------------------------------------- counts --
+
+def count_params(params) -> int:
+    """The number of parameters in a params tree (on any device, meta
+    too): the sum of its leaves' element counts."""
+    return sum(int(np.prod(leaf.shape)) for leaf in tree.leaves(params))

@@ -432,7 +432,9 @@ class Run:
                             manifest_doc=cfg.to_manifest())
         self._attach(coord)
         try:
-            return coord.run()
+            res = coord.run()
+            transport.flush()      # the workers' stop, before the close
+            return res
         finally:
             transport.close()
 
@@ -464,7 +466,9 @@ class Run:
                             resume_state=state)
         self._attach(coord)
         try:
-            return coord.run()
+            res = coord.run()
+            transport.flush()      # the workers' stop, before the close
+            return res
         finally:
             transport.close()
 

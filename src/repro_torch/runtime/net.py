@@ -178,13 +178,24 @@ class _Peer:
         self.transport = transport
         self.q: "queue.Queue[Optional[tuple]]" = queue.Queue()
         self.sock: Optional[socket.socket] = None
+        # frames enqueued and not yet written or dropped (``flush`` waits
+        # for 0); changed under ``_pending_lock``
+        self.pending = 0
+        self._pending_lock = threading.Lock()
         self.thread = threading.Thread(
             target=self._run, daemon=True,
             name=f"net-send-{addr[0]}:{addr[1]}")
         self.thread.start()
 
     def enqueue(self, frame: bytes) -> None:
+        with self._pending_lock:
+            self.pending += 1
         self.q.put((time.monotonic(), frame))
+
+    def _settled(self, n: int) -> None:
+        """``n`` frames were written or dropped."""
+        with self._pending_lock:
+            self.pending -= n
 
     def close(self) -> None:
         self.q.put(None)
@@ -241,6 +252,7 @@ class _Peer:
             if batch is None:
                 break
             blob = b"".join(frame for _, frame in batch)
+            settled = len(batch)
             while not t.closed:
                 try:
                     if self._stale():
@@ -280,6 +292,7 @@ class _Peer:
                         blob = b"".join(frame for _, frame in batch)
                     time.sleep(backoff)
                     backoff = min(backoff * 2, t.backoff_max)
+            self._settled(settled)
         if self.sock is not None:
             try:
                 self.sock.close()
@@ -593,6 +606,21 @@ class SocketTransport(TransportBase):
             except OSError:
                 pass
 
+    def flush(self, timeout: float = 5.0) -> bool:
+        """Wait, at most ``timeout`` s, until every frame sent so far has
+        been written to its socket or dropped by its retry window. A
+        graceful end calls this before ``close``: ``close`` drops what the
+        sender threads have not written yet, and the last frames of a run
+        are the workers' ``stop``. True when nothing is left pending."""
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            peers = list(self._peers.values())
+        while any(p.pending > 0 for p in peers):
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(0.005)
+        return True
+
     def close(self) -> None:
         """Tear down the listener, accepted connections, and all sender
         threads. Safe to call more than once; in-flight frames may be lost
@@ -776,6 +804,7 @@ def coordinator_main(spec, cfg, addr_of: Dict[int, Addr],
                         manifest_doc=manifest_doc, resume_state=resume_state)
     try:
         coord.run()
+        transport.flush()          # the workers' stop, before the close
     finally:
         transport.close()
 

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the reference
-package, and it never falls back to the CPU on its own — an entry point
+package (nor do its alias ``ftpipehd_torch`` and its examples in
+``examples_torch/``, which also leave ``benchmarks/`` alone), and it
+never falls back to the CPU on its own — an entry point
 asked (or left) to compute on CUDA raises where there is none, and a CUDA
 kernel launches or raises."""
 import ast
@@ -23,17 +25,25 @@ from repro_torch.runtime.qtensor import DeviceQuantized  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro", "ftpipehd")
+ALIAS = ROOT / "src" / "ftpipehd_torch"
+EXAMPLES = ROOT / "examples_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro", "ftpipehd", "benchmarks")
+
+
+def _examples():
+    return sorted(EXAMPLES.glob("*.py"))
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + sorted(ALIAS.rglob("*.py"))
+            + [ROOT / "chip_smoke.py"] + _examples())
 
 
 def _modules():
     return sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
-        .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+        .removesuffix(".__init__")
+        for p in [*PORT.rglob("*.py"), *ALIAS.rglob("*.py")])
 
 
 def test_no_forbidden_import_in_the_source():
@@ -51,16 +61,42 @@ def test_no_forbidden_import_in_the_source():
     assert not bad, bad
 
 
+def test_the_examples_and_the_alias_are_all_there():
+    """Every example of ``examples/`` has its port under its own name."""
+    assert ({p.name for p in _examples()}
+            == {p.name for p in (ROOT / "examples").glob("*.py")})
+    assert (ALIAS / "__init__.py").exists()
+
+
 def test_importing_every_module_loads_no_jax_nor_reference():
-    code = ("import importlib, sys\n"
+    code = ("import importlib, importlib.util, sys\n"
             f"for m in {_modules()!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
+            f"for i, p in enumerate({[str(p) for p in _examples()]!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'ex{i}', p)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(len(sys.modules), bad)\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_alias_runs_without_jax_installed():
+    """``from ftpipehd_torch.run import Run`` with every JAX import made
+    to fail, as on a machine that has no JAX."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro', 'ftpipehd'):\n"
+            "    sys.modules[m] = None\n"
+            "from ftpipehd_torch.run import Run, RunConfig, start_run\n"
+            "import repro_torch.run\n"
+            "assert Run is repro_torch.run.Run\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -243,6 +243,27 @@ def test_close_shuts_a_connection_recorded_late():
         _close(a, first, second)
 
 
+def test_flush_delivers_what_close_would_drop():
+    """A graceful end's last frames (the workers' ``stop``) reach the
+    peer: ``flush`` waits until the sender thread has written them, where
+    ``close`` right after the send drops a frame not written yet (here
+    the receiver listens only 0.3 s after the send, so the sender is in
+    its reconnect backoff when the run ends)."""
+    p0, p1 = net.free_ports(HOST, 2)
+    addr_of = {COORD: (HOST, p0), 0: (HOST, p0), 1: (HOST, p1)}
+    a, b = SocketTransport(addr_of, local=(COORD, 0)), None
+    try:
+        assert a.send(COORD, 1, "stop", {})
+        time.sleep(0.3)
+        b = SocketTransport(addr_of, local=(1,))
+        assert a.flush(timeout=10.0)
+        a.close()
+        m = b.recv(1, timeout=5.0)
+        assert m is not None and m.kind == "stop"
+    finally:
+        _close(a, b)
+
+
 def test_coalesced_frames_all_arrive_in_order():
     a, b = _pair()
     try:
