@@ -23,7 +23,7 @@ from typing import Any
 
 import torch
 
-from repro_torch import tree
+from repro_torch import obs, tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as m2
@@ -102,15 +102,17 @@ class Dense:
     @staticmethod
     def apply(p, x, ctx: BlockCtx):
         cfg = ctx.cfg
-        a = attn_lib.attention(p["attn"],
-                               modules.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                               cfg=cfg, positions=ctx.positions,
-                               causal=ctx.causal, window=ctx.window,
-                               tp=ctx.tp, dtype=ctx.dtype)
-        x = _blend(ctx.active, x + ctx.tp.psum(a), x)
-        mlp = _mlp(p["mlp"], modules.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg,
-                   ctx.dtype)
-        x = _blend(ctx.active, x + ctx.tp.psum(mlp), x)
+        with obs.span("block.attn"):
+            a = attn_lib.attention(p["attn"],
+                                   modules.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                   cfg=cfg, positions=ctx.positions,
+                                   causal=ctx.causal, window=ctx.window,
+                                   tp=ctx.tp, dtype=ctx.dtype)
+            x = _blend(ctx.active, x + ctx.tp.psum(a), x)
+        with obs.span("block.ffn"):
+            mlp = _mlp(p["mlp"], modules.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                       cfg, ctx.dtype)
+            x = _blend(ctx.active, x + ctx.tp.psum(mlp), x)
         return x, 0.0
 
     @staticmethod
@@ -167,13 +169,15 @@ class Moe:
     @staticmethod
     def apply(p, x, ctx: BlockCtx):
         cfg = ctx.cfg
-        a = attn_lib.attention(p["attn"],
-                               modules.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                               cfg=cfg, positions=ctx.positions,
-                               causal=ctx.causal, window=ctx.window,
-                               tp=ctx.tp, dtype=ctx.dtype)
-        x = _blend(ctx.active, x + ctx.tp.psum(a), x)
-        x, aux = Moe._ffn(p, x, ctx)
+        with obs.span("block.attn"):
+            a = attn_lib.attention(p["attn"],
+                                   modules.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                   cfg=cfg, positions=ctx.positions,
+                                   causal=ctx.causal, window=ctx.window,
+                                   tp=ctx.tp, dtype=ctx.dtype)
+            x = _blend(ctx.active, x + ctx.tp.psum(a), x)
+        with obs.span("block.ffn"):
+            x, aux = Moe._ffn(p, x, ctx)
         return x, aux * ctx.active
 
     @staticmethod

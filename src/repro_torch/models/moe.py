@@ -26,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import modules
 from repro_torch.models.tp import TP
@@ -86,9 +87,22 @@ def dispatch(top_e, num_experts: int, C: int, e0: int = 0,
     return keep, local, slot
 
 
+def _dropped(keep) -> int:
+    return keep.numel() - int(keep.sum())
+
+
 def moe_ffn(p, x, *, cfg: ModelConfig, tp: TP = TP.none(),
             dtype=torch.bfloat16):
-    """x: [B, S, d]. Returns (partial_out [B, S, d], aux_loss)."""
+    """x: [B, S, d]. Returns (partial_out [B, S, d], aux_loss). Recorded
+    as the span ``moe`` (forward and backward) with the counters
+    ``moe.routes`` and ``moe.routes_dropped`` (``obs.py``)."""
+    x = obs.grad_mark(x, "moe", "in")
+    with obs.span("moe", device=x.device):
+        out, aux = _moe_ffn(p, x, cfg=cfg, tp=tp, dtype=dtype)
+    return obs.grad_mark(out, "moe", "out"), aux
+
+
+def _moe_ffn(p, x, *, cfg, tp, dtype):
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.moe_top_k
     E_local = E // tp.size
@@ -107,6 +121,8 @@ def moe_ffn(p, x, *, cfg: ModelConfig, tp: TP = TP.none(),
 
     keep, local, slot = dispatch(top_e, E, C, e0, E_local)
     trash = E_local * C
+    obs.count("moe.routes", keep.numel())
+    obs.count_tensor("moe.routes_dropped", keep, _dropped)
 
     # --- scatter: each kept route owns its row; dropped ones the trash row
     xk = xt.repeat_interleave(k, dim=0).to(dtype)                 # [T*k, d]

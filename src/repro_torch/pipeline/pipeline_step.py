@@ -44,7 +44,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import collectives, tree
+from repro_torch import collectives, obs, tree
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.launch.mesh import DATA_AXES, ranked
 from repro_torch.models import model as model_lib
@@ -131,15 +131,16 @@ def pipeline_forward(mesh, cfg: ModelConfig, blocks, x, pad_mask, *,
         mb, seq)
 
     def stage_fn(s, xin, kv_in):
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
-        xx = xin
-        for j, t in enumerate(layout):
-            ctx = BlockCtx(cfg=cfg, positions=positions, tp=TP.none(),
-                           dtype=dtype, causal=causal, window=window,
-                           kv_source=kv_in, active=pad_mask[s, j])
-            xx, a = BLOCKS[t].apply(slots[s][j], xx, ctx)
-            aux = aux + a
-        return xx, aux
+        with obs.span("engine.stage", device=dev):
+            aux = torch.zeros((), dtype=torch.float32, device=dev)
+            xx = xin
+            for j, t in enumerate(layout):
+                ctx = BlockCtx(cfg=cfg, positions=positions, tp=TP.none(),
+                               dtype=dtype, causal=causal, window=window,
+                               kv_source=kv_in, active=pad_mask[s, j])
+                xx, a = BLOCKS[t].apply(slots[s][j], xx, ctx)
+                aux = aux + a
+            return xx, aux
 
     def run_stage(s, xin, kv_in):
         if remat and torch.is_grad_enabled():
@@ -404,6 +405,24 @@ def _final_norm(params, cfg, y):
         params["final_norm"], y, cfg.norm_eps)
 
 
+def _head_loss(mesh, cfg, params, y, labels, mask):
+    """The final norm, the head and the cross-entropy, recorded as the
+    span ``head`` with its backward (``obs.py``)."""
+    y = obs.grad_mark(y, "head", "in")
+    with obs.span("head", device=y.device):
+        yn = _final_norm(params, cfg, y)
+        labels = torch.as_tensor(labels, device=yn.device)
+        if labels.shape[1] < yn.shape[1]:       # vlm prefix: no loss there
+            pad = yn.shape[1] - labels.shape[1]
+            labels = torch.cat([torch.zeros((labels.shape[0], pad),
+                                            dtype=labels.dtype,
+                                            device=labels.device), labels],
+                               dim=1)
+        loss = loss_lib.lm_head_loss(mesh, params["head"]["w"], yn, labels,
+                                     mask, vocab_size=cfg.vocab_size)
+    return obs.grad_mark(loss, "head", "out")
+
+
 def make_loss_fn(mesh, cfg: ModelConfig, *, num_microbatches=0, remat=True,
                  window: int = 0, unroll=False):
     """(params, batch) -> (total, {"loss", "aux"}), and
@@ -444,16 +463,7 @@ def make_loss_fn(mesh, cfg: ModelConfig, *, num_microbatches=0, remat=True,
                                       num_microbatches=num_microbatches,
                                       window=window or cfg.sliding_window,
                                       remat=remat, unroll=unroll)
-        yn = _final_norm(params, cfg, y)
-        labels = torch.as_tensor(batch["labels"], device=yn.device)
-        if labels.shape[1] < yn.shape[1]:       # vlm prefix: no loss there
-            pad = yn.shape[1] - labels.shape[1]
-            labels = torch.cat([torch.zeros((labels.shape[0], pad),
-                                            dtype=labels.dtype,
-                                            device=labels.device), labels],
-                               dim=1)
-        loss = loss_lib.lm_head_loss(mesh, params["head"]["w"], yn, labels,
-                                     mask, vocab_size=cfg.vocab_size)
+        loss = _head_loss(mesh, cfg, params, y, batch["labels"], mask)
         total = loss + cfg.router_aux_weight * aux
         return total, {"loss": loss, "aux": aux}
 
@@ -499,6 +509,10 @@ def make_train_step(mesh, cfg: ModelConfig, tc: TrainConfig, *,
     agg_every = cfg.aggregate_every
 
     def train_step(state, batch):
+        with obs.unit("engine.train_step"):
+            return _train_step(state, batch)
+
+    def _train_step(state, batch):
         total, metrics, grads = loss_fn.value_and_grad(state["stash"], batch)
         del total
         if tc.bf16_grads:
@@ -508,18 +522,21 @@ def make_train_step(mesh, cfg: ModelConfig, tc: TrainConfig, *,
         kw = dict(lr=tc.learning_rate, weight_decay=tc.weight_decay)
         if tc.optimizer == "sgd":
             kw["momentum"] = tc.momentum
-        new_params, new_opt = opt_update(state["params"], grads,
-                                         state["opt_state"], **kw)
+        dev = state["step"].device
+        with obs.span("engine.optimizer", device=dev):
+            new_params, new_opt = opt_update(state["params"], grads,
+                                             state["opt_state"], **kw)
         del grads
         step = state["step"] + 1
         # a meta step has no value (launch/dryrun.py): its blend, work a
         # FLOP count does not see, is left out there
         if agg_every and not step.is_meta and int(step) % agg_every == 0:
             new_params = dict(new_params)
-            for key in ("blocks", "dec_blocks"):
-                if key in new_params:
-                    new_params[key] = _stage_window_blend(
-                        mesh, cfg, new_params[key], state["stash"][key])
+            with obs.span("engine.blend", device=dev):
+                for key in ("blocks", "dec_blocks"):
+                    if key in new_params:
+                        new_params[key] = _stage_window_blend(
+                            mesh, cfg, new_params[key], state["stash"][key])
         new_stash = state["params"] if cfg.stash_depth > 1 else new_params
         metrics = {k: torch.as_tensor(v).detach() for k, v in
                    metrics.items()}
@@ -573,6 +590,10 @@ def make_prefill_step(mesh, cfg: ModelConfig, *, num_microbatches=0,
         return prefill_chunked
 
     def prefill_step(params, batch):
+        with obs.unit("engine.prefill"):
+            return _prefill_step(params, batch)
+
+    def _prefill_step(params, batch):
         dtype = modules.dtype_of(cfg.dtype)
         if ranked(mesh):
             batch = _rank_batch(mesh, batch)
@@ -752,16 +773,17 @@ class _RankPass:
             mb, seq)
 
         def stage_fn(xin, kv_in):
-            aux = torch.zeros((), dtype=torch.float32, device=dev)
-            xx = xin
-            for j, t in enumerate(st.layout):
-                ctx = BlockCtx(cfg=cfg, positions=positions, tp=st.tp,
-                               dtype=dtype, causal=self.causal,
-                               window=self.window, kv_source=kv_in,
-                               active=st.pads[j])
-                xx, a = BLOCKS[t].apply(st.slots[j], xx, ctx)
-                aux = aux + a
-            return xx, aux
+            with obs.span("engine.stage", device=dev):
+                aux = torch.zeros((), dtype=torch.float32, device=dev)
+                xx = xin
+                for j, t in enumerate(st.layout):
+                    ctx = BlockCtx(cfg=cfg, positions=positions, tp=st.tp,
+                                   dtype=dtype, causal=self.causal,
+                                   window=self.window, kv_source=kv_in,
+                                   active=st.pads[j])
+                    xx, a = BLOCKS[t].apply(st.slots[j], xx, ctx)
+                    aux = aux + a
+                return xx, aux
 
         def run_stage(xin, kv_in):
             if self.remat and grad:
@@ -1002,15 +1024,9 @@ def _rank_value_and_grad(mesh, cfg: ModelConfig, *, num_microbatches=0,
                                                st.stage_group)
             aux_leaf = aux_r.detach().requires_grad_(aux_r.requires_grad)
             aux = _rank_combine_aux(mesh, aux_leaf)
-            yn = _final_norm(p, cfg, y_all)
-            labels = torch.as_tensor(batch["labels"], device=dev)[rows]
-            if labels.shape[1] < yn.shape[1]:   # vlm prefix: no loss there
-                pad = yn.shape[1] - labels.shape[1]
-                labels = torch.cat([torch.zeros(
-                    (labels.shape[0], pad), dtype=labels.dtype,
-                    device=dev), labels], dim=1)
-            loss = loss_lib.lm_head_loss(mesh, p["head"]["w"], yn, labels,
-                                         mask, vocab_size=cfg.vocab_size)
+            loss = _head_loss(
+                mesh, cfg, p, y_all,
+                torch.as_tensor(batch["labels"], device=dev)[rows], mask)
             total = loss + cfg.router_aux_weight * aux
             torch.autograd.backward(total, torch.full_like(total,
                                                            1.0 / world))

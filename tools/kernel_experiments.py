@@ -6,7 +6,6 @@
     python3 tools/kernel_experiments.py k4r2
     python3 tools/kernel_experiments.py quant [--no-cuts] [--baseline FILE]
     python3 tools/kernel_experiments.py families
-    python3 tools/kernel_experiments.py engine
     python3 tools/kernel_experiments.py k4host --baseline FILE
 
 ``k5``: where the SSD scan's (K5) time goes. Builds variants of
@@ -78,15 +77,6 @@ and copies, sort, index and scatter, scans, reductions, other
 elementwise), the five kernels that took the most,
 their count, and the device's idle share (1 - kernel time / wall time;
 one stream, so kernels do not overlap).
-
-``engine``: where the pipeline engine's time goes (phase E of
-``chip_smoke.py``): qwen2-1.5b at full width on a (1, 4, 1) mesh, a bf16
-train step at phase E's settings (B=4, S=1,024, 4 microbatches, remat,
-Adam, stash 2, blend every 2) after two warm-up steps, once without and
-once with the blend, each under ``torch.profiler`` as ``families``
-reports a forward; then the step's pieces timed apart on the host clock
-(synchronised): the loss with its backward, the Adam update, the blend;
-then one pipelined bf16 prefill at B=4, S=2,048, 4 microbatches.
 
 ``k4host``: the host time of one call of K4's wrapper
 (``flash_attention_kernel``, 1,000 calls with no sync, as
@@ -767,76 +757,6 @@ def profiled(fn, torch):
     return out, device_summary(prof, wall)
 
 
-def synced_ms(fn, torch):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
-
-
-def engine():
-    import numpy as np
-    import torch
-    import chip_smoke as c
-    from repro_torch import tree
-    from repro_torch.configs import TrainConfig, get_config
-    from repro_torch.data.synthetic import SyntheticLM
-    from repro_torch.kernels import build
-    from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.models import model as M
-    from repro_torch.optim import adam_update
-    from repro_torch.pipeline import pipeline_step as ps
-    for name in ("flash_attention", "flash_attention_sm90"):
-        build.build(name)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("qwen2-1.5b").with_overrides(
-        tensor_parallel=1, use_flash_attention=1, stash_depth=2,
-        aggregate_every=2)
-    mesh = make_debug_mesh(1, cfg.pipeline_stages, 1, device="cuda")
-    B, S, Mb = c.ENGINE_TRAIN_B, c.ENGINE_TRAIN_S, c.ENGINE_TRAIN_M
-    tc = TrainConfig(learning_rate=c.ENGINE_TRAIN_LR, optimizer="adam",
-                     microbatches=Mb, remat=True, weight_decay=0.0)
-    step_fn, loss_fn = ps.make_train_step(mesh, cfg, tc)
-    lm = SyntheticLM(vocab_size=cfg.vocab_size, seed=0)
-    x, y = lm.sample(np.random.default_rng(1), B, S)
-    batch = {"tokens": torch.as_tensor(x, device="cuda"),
-             "labels": torch.as_tensor(y, device="cuda")}
-    state = step_fn.init_state(M.init_params(0, cfg, device="cuda"))
-    for _ in range(2):                                # warm-up
-        state, _ = step_fn(state, batch)
-    for blend in (False, True):                       # steps 3 and 4
-        (state, _), summary = profiled(lambda: step_fn(state, batch), torch)
-        emit(what="engine_train_step", config=cfg.name, B=B, S=S,
-             microbatches=Mb, blend=blend, **summary)
-    (_, _, grads), loss_ms = synced_ms(
-        lambda: c.engine_grads(loss_fn, state["stash"], batch, torch), torch)
-    leaves, paths = tree.flatten(state["params"])
-    g = tree.unflatten(paths, grads)
-    del grads
-    _, adam_ms = synced_ms(lambda: adam_update(
-        state["params"], g, state["opt_state"], lr=tc.learning_rate,
-        weight_decay=0.0), torch)
-    del g
-    _, blend_ms = synced_ms(lambda: ps._stage_window_blend(
-        mesh, cfg, state["params"]["blocks"], state["stash"]["blocks"]),
-        torch)
-    emit(what="engine_train_step_pieces", loss_and_backward_ms=loss_ms,
-         adam_ms=adam_ms, blend_ms=blend_ms,
-         parameters=sum(t.numel() for t in leaves))
-    del state, leaves
-    torch.cuda.empty_cache()
-    params = M.init_params(0, cfg, device="cuda")
-    toks, _ = lm.sample(np.random.default_rng(3), c.PREFILL_B, c.PREFILL_S)
-    prompt = {"tokens": torch.as_tensor(toks, device="cuda")}
-    prefill = ps.make_prefill_step(mesh, cfg, num_microbatches=Mb)
-    with torch.no_grad():
-        prefill(params, prompt)                       # warm-up
-        _, summary = profiled(lambda: prefill(params, prompt), torch)
-    emit(what="engine_prefill", config=cfg.name, B=c.PREFILL_B,
-         S=c.PREFILL_S, microbatches=Mb, **summary)
-
-
 def k4host(baseline):
     import importlib.util
     import statistics
@@ -882,7 +802,6 @@ def main():
     q.add_argument("--baseline", required=True)
     sub.add_parser("k4r2")
     sub.add_parser("families")
-    sub.add_parser("engine")
     q = sub.add_parser("k4host")
     q.add_argument("--baseline", required=True)
     q = sub.add_parser("quant")
@@ -902,8 +821,6 @@ def main():
         k4r2()
     elif args.what == "families":
         families()
-    elif args.what == "engine":
-        engine()
     elif args.what == "k4host":
         k4host(args.baseline)
     else:
