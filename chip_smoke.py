@@ -91,6 +91,28 @@ Phases, each fatal on failure (exit code 1, no result line):
      output its f32 plain value correctly rounded (the 5e-2 of the JAX
      test below |y| = 16, see ``ssd_phase``); plus the model's own dt
      draw, whose y reaches ~10^2, within 1e-5 relative L2;
+  C. hold the expert combine (``kernels/moe_combine``: ``moe_combine_fwd``;
+     the backward's memset, ``moe_combine_bwd_owner`` and
+     ``moe_combine_bwd``) against its plain version (``ref.py``: the
+     ``cat``, ``yf[slot]``, product and top-k sum it replaced) on the card
+     at olmoe-1b-7b's shapes (``COMBINE_SHAPES``): (i) a training
+     microbatch (T 4,096, top-8 of 64 experts at capacity 640: 40,960
+     rows of d 2,048, bf16) with none, ~69% and all of the routes
+     dropped, phase M's f32 prefill (T 8,192, capacity 1,280) and a
+     4-token f32 decode step at capacity factor 8: the output and both
+     gradients through autograd, dy bit for bit the plain one's and
+     exactly 0 in every row no route owns, out and dw within one
+     rounding of the exact (f64) value (plus the f32 sums' own error)
+     and within the plain version's roundings of the kernels', dw 0 at
+     the trash row, two backwards bit for bit, one launch of each counter
+     a call; (ii) at the three training draws, each pass's device time
+     beside its bound (the bytes it must move) and the plain version's,
+     for the kernels line; (iii) the benchmark's main path: two bf16 train steps of the
+     engine at olmoe-1b-7b's widths cut to ``COMBINE_TRAIN``'s 4 layers
+     (B=4, S=1,024, M=4, remat, Adam, stash 2, the blend at step 2 held
+     by ``checked_blends``), both counters set to 0 before each step and
+     read after it: 2 x layers x M forwards (a microbatch's forward and
+     its remat replay) and layers x M backwards;
   T. the dense transformer serving path at the full width of qwen2-1.5b
      (28 layers, d=1536, GQA 12:2, dh=128, vocab 151,936; random weights
      from seed 0, prompts from ``SyntheticLM``): (i) prefill through
@@ -135,7 +157,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      Z; aux finite; (ii) at capacity factor 8 (nothing dropped) 4 chunks
      of 512 (64 K4 launches) + 8 decode steps within 1e-3 of a kernel
      forward; (iii) ``ServingEngine`` (4 slots, cache 128) answers 8
-     requests of 16, held as in T (iii);
+     requests of 16, held as in T (iii); in each run the expert
+     combine's forwards are counted (16 a forward, a chunk, a decode
+     step) and no backward;
   X. the xLSTM serving path at the full width of xlstm-125m (12 layers,
      4 stages of (mLSTM, sLSTM, mLSTM), d=768, 4 heads, expand 2): (i)
      prefill at B=4, S=2048 in f32 and bf16, no K4 launch, the sLSTM
@@ -2145,6 +2169,246 @@ def hybrid_phase(torch, fops, sops):
     return summary
 
 
+# ------------------- the expert combine (C): olmoe-1b-7b -------------------
+
+# (name, T, experts, top-k, d, dtype, routing, capacity factor): see phase C
+COMBINE_SHAPES = (
+    ("train_none_dropped", 4096, 64, 8, 2048, "bfloat16", "even", 1.25),
+    ("train_69pct_dropped", 4096, 64, 8, 2048, "bfloat16", "hot16", 1.25),
+    ("train_all_dropped", 4096, 64, 8, 2048, "bfloat16", "none", 1.25),
+    ("prefill_f32", 8192, 64, 8, 2048, "float32", "hot16", 1.25),
+    ("decode_f32", 4, 64, 8, 2048, "float32", "random", 8.0),
+)
+COMBINE_TIMED = COMBINE_SHAPES[:3]        # a training microbatch's
+COMBINE_TRAIN = (4, 4, 1024, 4)           # phase C (iii): layers, B, S, M
+
+
+def combine_inputs(shape, seed, torch):
+    """(y, slot, w, dout) of one ``COMBINE_SHAPES`` entry as ``_moe_ffn``
+    makes them: slot from ``moe.dispatch`` at the shape's capacity, w the
+    renormalised top-k weights masked by keep, in the shape's dtype.
+    ``even`` spreads the routes over the experts (none dropped),
+    ``hot16`` puts each token on 8 of 16 experts (~69% dropped, as the
+    benchmark's random router does), ``random`` on k of all of them, and
+    ``none`` sends every route to the trash row (as on a tensor shard
+    that owns none of the experts)."""
+    from repro_torch.models import moe
+    _, T, E, k, d, dtype, rule, cf = shape
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C = moe.capacity(T, types.SimpleNamespace(
+        moe_top_k=k, num_experts=E, capacity_factor=cf))
+    if rule == "even":
+        top_e = (torch.arange(T * k, device="cuda") % E).reshape(T, k)
+    else:
+        pool = E if rule == "random" else 16
+        top_e = torch.rand((T, pool), generator=g,
+                           device="cuda").argsort(-1)[:, :k]
+    keep, local, slot = moe.dispatch(top_e, E, C)
+    top_w = torch.rand((T, k), generator=g, device="cuda") + 0.05
+    top_w = top_w / top_w.sum(-1, keepdim=True)
+    w = (top_w.reshape(-1) * keep * local).to(dt).reshape(T, k)
+    slot = slot.reshape(T, k)
+    if rule == "none":
+        slot, w = torch.full_like(slot, E * C), torch.zeros_like(w)
+    y = torch.randn((E * C, d), generator=g, device="cuda").to(dt)
+    dout = torch.randn((T, d), generator=g, device="cuda").to(dt)
+    return y, slot, w, dout
+
+
+def combine_vs_plain(shape, torch, cops, cref):
+    """Phase C (i) at one shape: the kernels' output and both gradients
+    against the plain version's and the exact (f64) values. Returns the
+    shape's figures."""
+    y, slot, w, dout = combine_inputs(shape, 7, torch)
+    rows = y.shape[0]
+    # one rounding to the dtype, relative (unit roundoff)
+    rnd = 2.0 ** -8 if y.dtype == torch.bfloat16 else 2.0 ** -24
+
+    def through(fn):
+        yl, wl = (t.clone().requires_grad_(True) for t in (y, w))
+        out = fn(yl, slot, wl)
+        return (out.detach(), *torch.autograd.grad(out, (yl, wl), dout))
+
+    n0 = cops.combine_forward.launches, cops.combine_backward.launches
+    out, dy, dw = through(cops.moe_combine)
+    n = (cops.combine_forward.launches - n0[0],
+         cops.combine_backward.launches - n0[1])
+    p_out, p_dy, p_dw = through(cref.combine_reference)
+    again = [cops.combine_backward(dout, y, slot, w) for _ in range(2)]
+    tok = torch.cat([y.double(), y.new_zeros((1, y.shape[1]),
+                                             dtype=torch.float64)])[slot]
+    prod = tok * w.double()[..., None]                       # [T, k, d]
+    want, scale = prod.sum(1), prod.abs().sum(1)
+    prod = tok * dout.double()[:, None]
+    dw_want, dw_scale = prod.sum(-1), prod.abs().sum(-1)
+    del tok, prod
+    owned = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    owned[slot[slot < rows]] = True
+    unowned = dy[~owned]
+    # out: k products summed in f32, rounded once (the f32 sum's error is
+    # below 1e-6 of the scale); dw: 2,048 products, 64 summed in a lane,
+    # then 5 levels of a warp's tree: (64 + 5) x 2^-24 ~ 4.1e-6 of the
+    # scale at worst, held at 1e-5. The plain version rounds each product
+    # to the dtype before its f32 sum, so it lies up to 2 roundings of the
+    # scale from the exact value: 3 roundings from the kernels'
+    out_err = (out.double() - want).abs()
+    dw_err = (dw.double() - dw_want).abs()
+    out_plain = (out.double() - p_out.double()).abs()
+    dw_plain = (dw.double() - p_dw.double()).abs()
+    fig = {
+        "name": shape[0], "T": slot.shape[0], "rows": rows,
+        "d": y.shape[1], "dtype": str(y.dtype).split(".")[-1],
+        "dropped_share": 1.0 - int((slot < rows).sum()) / slot.numel(),
+        "out_max_abs_err": out_err.max().item(),
+        "out_max_abs_vs_plain": out_plain.max().item(),
+        "dw_max_abs_err": dw_err.max().item(),
+        "dw_max_abs_vs_plain": dw_plain.max().item(),
+        "dy_equal_plain": bool(torch.equal(dy, p_dy)),
+        "unowned_rows": int((~owned).sum())}
+    log(f"C (i) {shape[0]}: T={fig['T']} rows={rows} {fig['dtype']}, "
+        f"{100 * fig['dropped_share']:.1f}% of routes at the trash row: "
+        f"out {fig['out_max_abs_err']:.3g} from exact "
+        f"({fig['out_max_abs_vs_plain']:.3g} from plain), dw "
+        f"{fig['dw_max_abs_err']:.3g} ({fig['dw_max_abs_vs_plain']:.3g}), "
+        f"dy bit for bit {fig['dy_equal_plain']}, "
+        f"{fig['unowned_rows']} rows no route owns")
+    what = f"moe_combine at {shape[0]}"
+    check(n == (1, 1), f"{what}: {n} forward / backward launches, not one "
+          f"each")
+    check(bool((out_err <= rnd * want.abs() + 1e-6 * scale).all()),
+          f"{what}: out farther than one rounding from the exact sum")
+    check(bool((out_plain <= (3 * rnd + 2e-6) * scale).all()),
+          f"{what}: out farther from the plain version than its roundings")
+    check(fig["dy_equal_plain"], f"{what}: dy is not the plain one's bit "
+          f"for bit")
+    check(bool((unowned == 0).all()) and not bool(
+        torch.signbit(unowned).any()), f"{what}: a row no route owns is not "
+          f"exactly 0 in dy")
+    check(bool((dw_err <= rnd * dw_want.abs() + 1e-5 * dw_scale).all()),
+          f"{what}: dw farther than one rounding from the exact dot")
+    check(bool((dw_plain <= (3 * rnd + 2e-5) * dw_scale).all()),
+          f"{what}: dw farther from the plain version than its roundings")
+    check(bool((dw[slot >= rows] == 0).all()), f"{what}: dw not 0 at the "
+          f"trash row")
+    check(all(torch.equal(a, b) for a, b in zip(again[0], again[1]))
+          and torch.equal(again[0][0], dy) and torch.equal(again[0][1], dw),
+          f"{what}: two backward calls differ")
+    return fig
+
+
+def combine_timings(shape, torch, cops, cref):
+    """Phase C (ii): one call's device time of each pass at one shape
+    (median of 30, L2 flushed, ``time_ms``), beside the plain version's
+    and the bound: the bytes the pass must move at 3.35 TB/s. The forward
+    reads the kept rows of y and slot and w, and writes out; the backward
+    writes every row of dy, reads dout of the tokens with a kept route,
+    the kept rows of y (for dw), slot and w, writes dw, and writes its
+    owner map (4 bytes a row, and a route's index at a kept row) and
+    reads it back. The kernels are timed by calling ``combine_forward``
+    and ``combine_backward``, which make the launches ``moe_combine``
+    and its backward make: through autograd a backward takes ~150 us of
+    host work, which can outlast ``time_ms``'s head start, and host
+    stalls then entered the reading (medians 1.9x and 2.5x the time
+    alone in two runs); the plain version, 0.4 ms a pass or more, is
+    timed through autograd."""
+    y, slot, w, dout = combine_inputs(shape, 7, torch)
+    (T, k), (rows, d), es = slot.shape, y.shape, y.element_size()
+    kept = int((slot < rows).sum())
+    tokens = int((slot < rows).any(1).sum())
+    moved = {"fwd": es * d * (kept + T) + T * k * (8 + es),
+             "bwd": (es * d * (rows + tokens + kept) + T * k * (8 + 2 * es)
+                     + 4 * (2 * rows + kept))}
+
+    yl, wl = (t.clone().requires_grad_(True) for t in (y, w))
+    plain = cref.combine_reference(yl, slot, wl)
+    with torch.no_grad():
+        fwd = (time_ms(lambda: cops.combine_forward(y, slot, w), torch),
+               time_ms(lambda: cref.combine_reference(y, slot, w), torch))
+    bwd = (time_ms(lambda: cops.combine_backward(dout, y, slot, w), torch),
+           time_ms(lambda: torch.autograd.grad(plain, (yl, wl), dout,
+                                               retain_graph=True), torch))
+    out = {"name": shape[0], "dropped_share": 1.0 - kept / (T * k)}
+    for name, (ms, plain_ms) in (("fwd", fwd), ("bwd", bwd)):
+        out.update({f"{name}_ms": ms, f"{name}_plain_ms": plain_ms,
+                    f"{name}_bound_ms": 1e3 * moved[name] / HBM_BYTES_PER_S,
+                    f"{name}_mb": moved[name] / 1e6})
+    log(f"C (ii) {shape[0]} ({100 * out['dropped_share']:.1f}% dropped): "
+        f"forward {fwd[0]:.4f} ms (bound {out['fwd_bound_ms']:.4f}, plain "
+        f"{fwd[1]:.4f}), backward {bwd[0]:.4f} ms (bound "
+        f"{out['bwd_bound_ms']:.4f}, plain {bwd[1]:.4f})")
+    return out
+
+
+def combine_engine_steps(torch, cops):
+    """Phase C (iii): the combine's launches in two train steps of the
+    engine at olmoe-1b-7b's widths cut to ``COMBINE_TRAIN``'s layers.
+    Returns the phase's figures."""
+    import numpy as np
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.pipeline.pipeline_step import make_train_step
+    L, B, S, Mb = COMBINE_TRAIN
+    cfg = get_config("olmoe-1b-7b").with_overrides(
+        num_layers=L, tensor_parallel=1, use_flash_attention=1,
+        stash_depth=2, aggregate_every=2)
+    n_slots = cfg.pipeline_stages * cfg.layers_per_stage
+    check(n_slots == L and cfg.slot_layout == ("moe",)
+          and cfg.d_model == 2048 and cfg.num_experts == 64
+          and cfg.moe_top_k == 8, f"olmoe-1b-7b cut to {L} layers: {cfg}")
+    mesh = make_debug_mesh(1, cfg.pipeline_stages, 1, device="cuda")
+    step_fn, _ = make_train_step(mesh, cfg, TrainConfig(
+        learning_rate=ENGINE_TRAIN_LR, optimizer="adam", microbatches=Mb,
+        remat=True, weight_decay=0.0))
+    x, lab = SyntheticLM(vocab_size=cfg.vocab_size, seed=0).sample(
+        np.random.default_rng(3), B, S)
+    batch = {"tokens": torch.as_tensor(x, device="cuda"),
+             "labels": torch.as_tensor(lab, device="cuda")}
+    state = step_fn.init_state(M.init_params(0, cfg, device="cuda"))
+    found, counts, losses = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    with checked_blends(found, torch):
+        for _ in range(2):
+            cops.combine_forward.launches = 0
+            cops.combine_backward.launches = 0
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            counts.append((cops.combine_forward.launches,
+                           cops.combine_backward.launches))
+            losses.append(float(m["loss"]))
+    want = (2 * n_slots * Mb, n_slots * Mb)
+    fig = {"config": f"{cfg.name} num_layers={L}", "B": B, "S": S,
+           "microbatches": Mb, "launches_per_step": counts,
+           "launches_want": want, "losses": losses, "blends": found,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"C (iii) engine train steps, {fig['config']}, B={B} S={S} M={Mb}, "
+        f"remat: combine launches (forward, backward) a step {counts} "
+        f"(want {want}); losses {losses}; blends (leaves, last stage new, "
+        f"earlier stages 0.5) {found}; peak {fig['peak_gb']:.2f} GB")
+    check(all(c == want for c in counts), f"engine steps launched the "
+          f"combine {counts} times, not {want} a step")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(len(found) == 1 and found[0][0] > 0 and found[0][1]
+          and found[0][2], f"the blend at step 2: {found}")
+    del state, batch
+    return fig
+
+
+def combine_phase(torch, cops, cref):
+    """Phase C: returns (per-shape checks, engine steps, timings)."""
+    t_phase = time.perf_counter()
+    checks = [combine_vs_plain(sh, torch, cops, cref)
+              for sh in COMBINE_SHAPES]
+    times = [combine_timings(sh, torch, cops, cref) for sh in COMBINE_TIMED]
+    free_card(torch)
+    steps = combine_engine_steps(torch, cops)
+    free_card(torch)
+    log(f"phase C took {time.perf_counter() - t_phase:.1f}s")
+    return checks, steps, times
+
+
 # ----------------------- the MoE slice (M): olmoe-1b-7b -------------------
 
 @contextlib.contextmanager
@@ -2241,7 +2505,7 @@ def moe_slot_updates(params, cfg, tokens):
     return out
 
 
-def moe_phase(torch, fops):
+def moe_phase(torch, fops, cops):
     """Phase M: prefill, chunked prefill + decode, and serving, at the full
     width of olmoe-1b-7b on the card. Returns its summary."""
     import numpy as np
@@ -2278,15 +2542,26 @@ def moe_phase(torch, fops):
     summary = {"config": f"{cfg.name} tensor_parallel=1 "
                          f"use_flash_attention=1", "parameters": n_params}
 
-    def forward(c, toks_):
+    combined = {}                      # the combine's launches, by run
+
+    def reset_combine():
+        cops.combine_forward.launches = cops.combine_backward.launches = 0
+
+    def read_combine(name):
+        combined[name] = (cops.combine_forward.launches,
+                          cops.combine_backward.launches)
+
+    def forward(c, toks_, name):
         """(logits, aux, recorded routes, K4 launches, of them on route 1)
-        of one sequential_lm_forward; the counts are set to 0 just
-        before, read just after."""
+        of one sequential_lm_forward; the counts (and the combine's, kept
+        under ``name``) are set to 0 just before, read just after."""
         reset_k4(K)
+        reset_combine()
         routes = []
         with recorded_routes(routes):
             logits, aux, _ = M.sequential_lm_forward(params, c, toks_)
         torch.cuda.synchronize()
+        read_combine(name)
         return logits, aux, routes, K.launches, K.launches_route1
 
     def rel_l2(a, b):
@@ -2295,10 +2570,11 @@ def moe_phase(torch, fops):
     with torch.no_grad():
         # ---- (i) prefill: K4 against the plain attention path ----------
         t0 = time.perf_counter()
-        kern, aux, rk, n, r1_f32 = forward(cfg32, prompt)
+        kern, aux, rk, n, r1_f32 = forward(cfg32, prompt, "prefill_f32")
         prefill32_s = time.perf_counter() - t0
         plain, _, rp, n0, _ = forward(
-            cfg32.with_overrides(use_flash_attention=0), prompt)
+            cfg32.with_overrides(use_flash_attention=0), prompt,
+            "prefill_f32_plain")
         check(n == n_slots and r1_f32 == 0 and n0 == 0,
               f"f32 prefill: {n} K4 launches with flash ({r1_f32} on route "
               f"1), {n0} without")
@@ -2337,12 +2613,13 @@ def moe_phase(torch, fops):
                            prefill_f32_slot_tokens_left_out=sl["tokens"])
         kern32 = kern
         del plain, rk, rp
-        forward(cfg, prompt)                               # warm-up
+        forward(cfg, prompt, "warm_up")                    # warm-up
         t0 = time.perf_counter()
-        kern, aux16, rk, n16, r1_bf16 = forward(cfg, prompt)
+        kern, aux16, rk, n16, r1_bf16 = forward(cfg, prompt, "prefill_bf16")
         prefill_s = time.perf_counter() - t0
         plain, _, rp, n0, _ = forward(
-            cfg.with_overrides(use_flash_attention=0), prompt)
+            cfg.with_overrides(use_flash_attention=0), prompt,
+            "prefill_bf16_plain")
         check(n16 == r1_bf16 == n_slots and n0 == 0,
               f"bf16 prefill: {n16} K4 launches with flash ({r1_bf16} on "
               f"route 1), {n0} without")
@@ -2394,10 +2671,13 @@ def moe_phase(torch, fops):
                                cache_len=PREFILL_S + DECODE_STEPS,
                                dtype=torch.float32, device="cuda")
         reset_k4(K)
+        reset_combine()
         last = prefill_chunks(params, cfg8, prompt, caches, CHUNK)
         torch.cuda.synchronize()
         n_chunks = K.launches
+        read_combine("chunked_prefill")
         reset_k4(K)
+        reset_combine()
         steps = []
         for t in range(DECODE_STEPS):
             lg, caches = M.sequential_decode_step(
@@ -2406,6 +2686,7 @@ def moe_phase(torch, fops):
             steps.append(lg[:, 0])
         torch.cuda.synchronize()
         n_decode = K.launches
+        read_combine("decode")
         ref = M.sequential_lm_forward(params, cfg8, tokens)[0][
             :, PREFILL_S - 1:]
         err_last = (last - ref[:, 0]).abs().max().item()
@@ -2429,9 +2710,23 @@ def moe_phase(torch, fops):
     rng = np.random.default_rng(1)
     prompts = [lm.sample(rng, 1, int(n))[0][0].tolist()
                for n in rng.integers(8, 65, 8)]
-    sv = serve_and_check(params, cfg32, prompts, 16, 128, {"K4": K}, torch)
+    sv = serve_and_check(params, cfg32, prompts, 16, 128, {
+        "K4": K, "combine_fwd": cops.combine_forward,
+        "combine_bwd": cops.combine_backward}, torch)
     check(sv["launches"]["K4"] == 0,
           f"serving launched K4 {sv['launches']['K4']} times")
+    combined["serving"] = (sv["launches"]["combine_fwd"],
+                           sv["launches"]["combine_bwd"])
+    # a forward, a chunk, a decode step: one combine forward a MoE slot
+    per_call = {"chunked_prefill": PREFILL_S // CHUNK,
+                "decode": DECODE_STEPS}
+    log(f"expert combine launches (forward, backward) by run: {combined}")
+    for name, (f, b) in combined.items():
+        want = n_slots * per_call.get(name, 1)
+        check(b == 0 and (f == want or name == "serving" and f > 0
+                          and f % n_slots == 0),
+              f"{name}: the combine launched {f} forwards and {b} "
+              f"backwards, not {want} and 0")
     log(f"(iii) ServingEngine: 8 requests (prompts "
         f"{[len(p) for p in prompts]}), 16 new tokens each, in "
         f"{sv['s']:.2f}s: {sv['generated_per_s']:.1f} generated tokens/s, "
@@ -2445,6 +2740,7 @@ def moe_phase(torch, fops):
                    serving_s=sv["s"],
                    decode_tokens_per_s=sv["generated_per_s"],
                    decode_tokens_fed_per_s=sv["fed_per_s"],
+                   combine_launches=combined,
                    k4_launches={"prefill_f32": n, "prefill_bf16": n16,
                                 "chunked_prefill": n_chunks,
                                 "decode": n_decode,
@@ -2907,35 +3203,38 @@ def sequential_grads(params, cfg, tokens, labels, torch):
 
 @contextlib.contextmanager
 def checked_blends(found, torch):
-    """Wraps the engine's ``_stage_window_blend`` (the smoke's recorder; the
-    package reads no switch): at each call, on the step's own tensors, the
-    last stage of the result must be the new params bit for bit and every
-    earlier stage an independent 0.5 blend of (new, stash) bit for bit.
-    Appends (leaves, last stage equal, earlier stages equal) to
-    ``found``."""
-    from repro_torch import tree
+    """Wraps the engine's ``_stage_window_blend`` and ``_blend_leaf`` (the
+    smoke's recorder; the package reads no switch): at each leaf, on the
+    step's own tensors (the new params copied first, since the blend
+    writes into them), the last stage of the result must be the new params
+    bit for bit and every earlier stage an independent 0.5 blend of (new,
+    stash) bit for bit. Appends (leaves, last stage equal, earlier stages
+    equal) to ``found`` for each blend."""
     from repro_torch.pipeline import pipeline_step as ps
-    blend = ps._stage_window_blend
+    blend, blend_leaf = ps._stage_window_blend, ps._blend_leaf
+    record = []
 
-    def checking(mesh, cfg, new_blocks, stash_blocks):
-        out = blend(mesh, cfg, new_blocks, stash_blocks)
-        S = cfg.pipeline_stages
-        last, early, n_leaves = True, True, 0
-        for o, n, st in zip(tree.leaves(out), tree.leaves(new_blocks),
-                            tree.leaves(stash_blocks)):
-            n_leaves += 1
-            last &= torch.equal(o[S - 1], n[S - 1])
-            half = (0.5 * n[:S - 1].to(torch.float32)
-                    + 0.5 * st[:S - 1].to(torch.float32)).to(n.dtype)
-            early &= torch.equal(o[:S - 1], half)
-        found.append((n_leaves, bool(last), bool(early)))
+    def checking_leaf(n, st, first, S):
+        new = n.clone()
+        o = blend_leaf(n, st, first, S)
+        half = (0.5 * new[:S - 1].to(torch.float32)
+                + 0.5 * st[:S - 1].to(torch.float32)).to(n.dtype)
+        record[0] += 1
+        record[1] &= torch.equal(o[S - 1], new[S - 1])
+        record[2] &= torch.equal(o[:S - 1], half)
+        return o
+
+    def checking(mesh, cfg, *blocks):
+        record[:] = [0, True, True]
+        out = blend(mesh, cfg, *blocks)
+        found.append((record[0], bool(record[1]), bool(record[2])))
         return out
 
-    ps._stage_window_blend = checking
+    ps._stage_window_blend, ps._blend_leaf = checking, checking_leaf
     try:
         yield
     finally:
-        ps._stage_window_blend = blend
+        ps._stage_window_blend, ps._blend_leaf = blend, blend_leaf
 
 
 def engine_phase(torch, fops, handoff):
@@ -4308,6 +4607,8 @@ def main():
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.ssm_scan import ops as sops
     from repro_torch.kernels.ssm_scan import ref as sref
+    from repro_torch.kernels.moe_combine import ops as cops
+    from repro_torch.kernels.moe_combine import ref as cref
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     card = card_line()
@@ -4317,7 +4618,8 @@ def main():
     with concurrent.futures.ThreadPoolExecutor() as pool:
         libs = list(pool.map(build.build,
                              ("fused_sgd", "quant", "flash_attention",
-                              "flash_attention_sm90", "ssd_scan")))
+                              "flash_attention_sm90", "ssd_scan",
+                              "moe_combine")))
     log(f"built {[os.path.relpath(lib, ROOT) for lib in libs]} in "
         f"{time.perf_counter() - t0:.1f}s; ptxas says, for each kernel "
         f"(the whole nvcc output is beside each library, *.log):")
@@ -4361,6 +4663,9 @@ def main():
     ssd_errs, ssd_rels, ssd_model = ssd_phase(torch, sops, sref)
     ssd_cover = ssd_coverage(torch, sops, sref)
 
+    # ---- phase C: the expert combine vs plain, in the engine's step -------
+    c_checks, c_steps, c_times = combine_phase(torch, cops, cref)
+
     # ---- phase 2: the port on the card against the CPU --------------------
     cross_device_checks(torch)
 
@@ -4396,7 +4701,7 @@ def main():
     free_card(torch)
 
     # ---- phase M: the MoE serving path --------------------------------------
-    m_run = moe_phase(torch, fops)
+    m_run = moe_phase(torch, fops, cops)
     free_card(torch)
 
     # ---- phase X: the xLSTM serving path ------------------------------------
@@ -4543,6 +4848,34 @@ def main():
         "ms_by_pass": k5_passes,
         "library_note": "no single PyTorch call computes the SSD scan",
         "per_shape": k5_times})
+    c_by_run = {**{f"olmoe_{r}": v for r, v in
+                   m_run["combine_launches"].items()},
+                **{f"engine_step_{i + 1}": v for i, v in
+                   enumerate(c_steps["launches_per_step"])}}
+    top = c_times[1]                     # ~69% dropped, the benchmark's
+    kernels.append({
+        # ms, plain_ms, bound_ms: a training microbatch's forward and
+        # backward together; each pass apart in "per_shape"
+        "name": "moe_combine", "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_combine.cu",
+        "replaces": None,
+        "replaces_note": "no Pallas counterpart: the JAX package gathers "
+                         "and sums with jnp indexing (src/repro/models/"
+                         "moe.py); the port's plain version is "
+                         "kernels/moe_combine/ref.py",
+        "launches": sum(map(sum, c_by_run.values())),
+        "launches_by_pass": {p: sum(v[i] for v in c_by_run.values())
+                             for i, p in enumerate(("fwd", "bwd"))},
+        "launches_by_run": c_by_run,
+        "max_abs_err": max(max(c["out_max_abs_err"], c["dw_max_abs_err"])
+                           for c in c_checks),
+        "checks": c_checks,
+        **{k: top[f"fwd_{k}"] + top[f"bwd_{k}"]
+           for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes", "engine_steps": c_steps,
+        "library_note": "no single PyTorch call computes the gather back "
+                        "and the top-k sum",
+        "per_shape": c_times})
     for entry in kernels:          # phase G's launches, by example
         entry["launches_in_examples"] = {
             name: run["launches"][entry["name"]]

@@ -18,6 +18,11 @@ What decides which route is kept must be the JAX package's exactly:
 Kept routes own one buffer row each; dropped ones all go to a trash row
 that is cut off, so the scatter is a copy. The expert products are plain
 batched matrix products, as in the JAX package (no Pallas kernel there).
+The gather back to the routes and the weighted sum over the top-k are
+one autograd function (``kernels/moe_combine``): on CUDA a hand-written
+kernel pair that skips the routes at the trash row and, since each kept
+route owns its row, writes the gradient rows without a sort or atomics;
+elsewhere the plain expression (its ``ref.py``).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.moe_combine import moe_combine
 from repro_torch.models import modules
 from repro_torch.models.tp import TP
 
@@ -137,9 +143,7 @@ def _moe_ffn(p, x, *, cfg, tp, dtype):
     y = torch.bmm(h, w2)                                          # [E_l, C, d]
 
     # --- gather back + combine ----------------------------------------------
-    yf = torch.cat([y.reshape(trash, d),
-                    torch.zeros((1, d), dtype=dtype, device=x.device)])
-    tok_y = yf[slot]                                              # [T*k, d]
     w = (top_w.reshape(-1) * keep * local).to(dtype)
-    out = (tok_y * w[:, None]).reshape(T, k, d).sum(dim=1)
+    out = moe_combine(y.reshape(trash, d), slot.reshape(T, k),
+                      w.reshape(T, k))                            # [T, d]
     return out.reshape(B, S, d), aux

@@ -354,23 +354,42 @@ CHUNKABLE = {"dense", "moe", "mamba", "hybrid", "mlstm", "slstm"}
 
 # ============================ train / serve steps =========================
 
-def _stage_window_blend(mesh, cfg, new_blocks, stash_blocks):
+def _blend_leaf(n, s, first: int, S: int):
+    """One leaf of ``_stage_window_blend``, written into ``n`` (the step's
+    own new params, which nothing else holds) a stage at a time: each
+    stage's ``a * new + (1 - a) * stash`` in f32, rounded once to n's
+    dtype, as whole-leaf tensors would give it bit for bit. In place and
+    by stage because the blend runs at the step's memory peak (old and new
+    params, stash and moments all live), where olmoe-1b-7b-4l's 2 GiB
+    expert leaves found no hole for whole-leaf temporaries."""
+    for i in range(n.shape[0]):
+        a = 0.5 if first + i < S - 1 else 1.0
+        torch.add(a * n[i].to(torch.float32),
+                  (1 - a) * s[i].to(torch.float32), out=n[i])
+    return n
+
+
+def _stage_window_blend(mesh, cfg, new_blocks, stash_blocks, old_blocks):
     """Paper weight aggregation mapped onto the depth-2 stash: stages with
     n - i >= 2 live versions average (new, stash); the last stage keeps new.
     Leaves carry a leading stage axis: every stage's on one device, the
-    rank's own stage (length 1) on a ``RankMesh``."""
+    rank's own stage (length 1) on a ``RankMesh``. Writes the blend into
+    ``new_blocks``' leaves and returns them, so it raises where a leaf of
+    ``new_blocks`` shares memory with one of the stash or of the step's
+    input params (``old_blocks``): an optimizer that hands back its input
+    would otherwise have the blend overwrite the state the step was
+    given."""
+    held = {t.untyped_storage().data_ptr()
+            for t in tree.leaves(stash_blocks) + tree.leaves(old_blocks)}
+    if any(n.numel() and n.untyped_storage().data_ptr() in held
+           for n in tree.leaves(new_blocks)):
+        raise RuntimeError("the blend writes into the new params, and a "
+                           "leaf of them shares memory with the stash or "
+                           "the step's input params")
     S = cfg.pipeline_stages
     first = mesh.coords[AXIS_STAGE] if ranked(mesh) else 0
-
-    def blend(n, s):
-        stage = first + torch.arange(n.shape[0], device=n.device)
-        alpha = torch.where(stage < S - 1, 0.5, 1.0)
-        a = alpha.reshape((n.shape[0],) + (1,) * (n.ndim - 1)).to(
-            torch.float32)
-        return (a * n.to(torch.float32)
-                + (1 - a) * s.to(torch.float32)).to(n.dtype)
-
-    return tree.map(blend, new_blocks, stash_blocks)
+    return tree.map(lambda n, s: _blend_leaf(n, s, first, S), new_blocks,
+                    stash_blocks)
 
 
 def _decoder_input(params, cfg, tokens, dtype, mesh):
@@ -536,7 +555,8 @@ def make_train_step(mesh, cfg: ModelConfig, tc: TrainConfig, *,
                 for key in ("blocks", "dec_blocks"):
                     if key in new_params:
                         new_params[key] = _stage_window_blend(
-                            mesh, cfg, new_params[key], state["stash"][key])
+                            mesh, cfg, new_params[key], state["stash"][key],
+                            state["params"][key])
         new_stash = state["params"] if cfg.stash_depth > 1 else new_params
         metrics = {k: torch.as_tensor(v).detach() for k, v in
                    metrics.items()}

@@ -169,6 +169,66 @@ def test_stash_and_blend_identities_bit_for_bit(mesh):
         assert a is b
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("first,stages", [(0, 4), (1, 2), (3, 4)])
+def test_blend_leaf_in_place_is_the_whole_leaf_blend(dtype, first, stages):
+    """``_blend_leaf`` writes into the new leaf, a stage at a time, what
+    the whole-leaf expression gives, bit for bit (0.5 blend before the
+    last stage, the new value on it), for f32 and bf16 leaves and a rank's
+    stage offset."""
+    g = torch.Generator().manual_seed(first + stages)
+    n = torch.randn((stages - first, 3, 5), generator=g).to(dtype)
+    s = torch.randn((stages - first, 3, 5), generator=g).to(dtype)
+    stage = first + torch.arange(n.shape[0])
+    a = torch.where(stage < stages - 1, 0.5, 1.0).reshape(-1, 1, 1)
+    want = (a * n.to(torch.float32) + (1 - a) * s.to(torch.float32)).to(dtype)
+    s_before = s.clone()
+    out = ps._blend_leaf(n, s, first, stages)
+    assert out is n and torch.equal(out, want) and torch.equal(s, s_before)
+
+
+@pytest.mark.parametrize("alias", ["optimizer_input", "stash_view"])
+def test_blend_refuses_new_params_that_share_the_state_memory(
+        mesh, monkeypatch, alias):
+    """The blend writes into the step's new params, so it raises, and
+    leaves the state passed in as it was, where a new leaf shares memory
+    with the step's input params (an optimizer that hands its input back)
+    or with the stash (a view of a stash leaf)."""
+    from repro_torch import optim
+    _, cfg, np_p, batches = _setup(stash_depth=2, aggregate_every=2)
+    tc = TrainConfig(learning_rate=0.05, optimizer="adam", microbatches=2,
+                     weight_decay=0.0)
+    real = optim.get_optimizer
+
+    def lazy(name):
+        init, update = real(name)
+
+        def handing_back(params, grads, state, **kw):
+            new, new_state = update(params, grads, state, **kw)
+            return {**new, "blocks": params["blocks"]}, new_state
+        return init, handing_back
+
+    step_fn, _ = ps.make_train_step(mesh, cfg, tc)
+    s1, _ = step_fn(step_fn.init_state(M.params_from_numpy(np_p)),
+                    _tb(batches[0]))
+    before = [t.clone() for t in tree.leaves(s1)]
+    if alias == "optimizer_input":
+        monkeypatch.setattr(optim, "get_optimizer", lazy)
+        lazy_fn, _ = ps.make_train_step(mesh, cfg, tc)
+        with pytest.raises(RuntimeError, match="shares memory"):
+            lazy_fn(s1, _tb(batches[1]))
+    else:
+        new = tree.map(torch.clone, s1["params"]["blocks"])
+        leaves, paths = tree.flatten(new)
+        leaves[0] = tree.leaves(s1["stash"]["blocks"])[0][:]
+        with pytest.raises(RuntimeError, match="shares memory"):
+            ps._stage_window_blend(mesh, cfg, tree.unflatten(paths, leaves),
+                                   s1["stash"]["blocks"],
+                                   s1["params"]["blocks"])
+    for a, b in zip(tree.leaves(s1), before):
+        assert torch.equal(a, b)
+
+
 def _train(mesh, cfg, steps=40, lr=0.02, opt="adam"):
     tc = TrainConfig(learning_rate=lr, optimizer=opt, microbatches=2,
                      weight_decay=0.0)
